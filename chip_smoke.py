@@ -3,18 +3,31 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-It builds every kernel of the streaming main path from the sources in
-the checkout (nvcc, at first use), holds each kernel against its plain
-PyTorch version on the card, checks the port against its own NumPy
-reference plane on a small timeline, checks that window counts stay
-exact with TF32 enabled globally, and drives the main path —
-``StreamingEngine`` → ``SwarmRouter`` → ``TorchPlane`` — at a realistic
-size: grid 512, 64 machines, 131 072 tuples per tick, 100 000 resident
-queries, the paper's Fig-12 hotspot timeline — three times: as a user
-runs it (the end-to-end rate), with the engine's own tracer on (time
-per layer) and under ``torch.profiler`` (the card's busy share).  Each
-phase prints one JSON line; then the card's name and power limit as
-nvidia-smi gives them, the ``kernels`` line, and last
+It builds every kernel of the port from the sources in the checkout
+(nvcc, at first use), holds each kernel against its plain PyTorch
+version on the card (phases ``k1`` … ``k4``), checks the port against
+its own NumPy reference plane on a small timeline, checks that window
+counts stay exact with TF32 enabled globally, and drives the port's
+paths at realistic sizes:
+
+- the streaming main path — ``StreamingEngine`` → ``SwarmRouter`` →
+  ``TorchPlane`` — at grid 512, 64 machines, 131 072 tuples per tick,
+  100 000 resident queries, the paper's Fig-12 hotspot timeline, three
+  times: as a user runs it (the end-to-end rate), with the engine's own
+  tracer on (time per layer) and under ``torch.profiler`` (the card's
+  busy share);
+- the exact-match API (phase ``match``): one hotspot tick of 131 072
+  tuples against those 100 000 queries through
+  ``TorchPlane.match_counts`` (K2) and, against the queries' centres as
+  kNN foci, ``knn_distances`` (K4);
+- the spatio-textual pub/sub deployment of ``benchmarks/pubsub.py``
+  (phase ``pubsub``): SWARM and static-history at 1 000 000 standing
+  ``spatial_keyword`` subscriptions on the card plane, its plane-parity
+  and collision-bound gates, and one full-scale delivery tick through
+  ``keyword_match_counts`` (K3).
+
+Each phase prints one JSON line; then the card's name and power limit
+as nvidia-smi gives them, the ``kernels`` line, and last
 ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 card, or without the repository around it, it exits non-zero before
@@ -38,6 +51,29 @@ GRID, MACHINES = 512, 64       # largest cell of benchmarks/control_plane.py
 LAMBDA = 131072                # largest batch of benchmarks/engine_throughput.py
 QUERIES = 100_000              # README pub/sub quickstart scale
 TICKS, ROUND_EVERY, WINDOW = 96, 8, 16
+KNN_K = 8                      # QuerySpec / WorkloadSpec.k
+
+# the pub/sub deployment of benchmarks/pubsub.py (BENCH_pubsub.json)
+PS_GRID, PS_MACHINES = 64, 8
+PS_SUBS, PS_TICKS = 1_000_000, 60
+PS_LAMBDA = 20_000
+PS_HOT_TERMS, PS_TERM_PEAK = 2, 0.5
+PS_CAP_PER_SUB = 0.75          # cap_units = 0.75 × subscriptions
+PS_PARITY_TICKS, PS_PARITY_SUBS = 24, 20_000
+
+# the shapes at which phases k2 … k4 hold each kernel against its plain
+# version: K2 and K4 at N points × Q rects or foci, K3 at PS_LAMBDA
+# tuples × Q subscriptions × T buckets
+K24_N, K24_Q = (4096, LAMBDA), (1000, QUERIES)
+K3_Q, K3_T = (65536, PS_SUBS), (32, 4096)
+
+# the TPU kernel each CUDA kernel replaces
+REPLACES = {
+    "stats_update": "src/repro/kernels/stats_update/stats_update.py:38",
+    "spatial_match": "src/repro/kernels/spatial_match/spatial_match.py:56",
+    "keyword_match": "src/repro/kernels/keyword_match/keyword_match.py:65",
+    "knn_match": "src/repro/kernels/knn_match/knn_match.py:61",
+}
 
 
 def emit(obj) -> None:
@@ -90,15 +126,94 @@ def time_ms(torch, fns, reps: int = 21) -> float:
     return statistics.median(times)
 
 
+def time_call_ms(torch, fn) -> float:
+    """Device time of one call of a millisecond-scale function: as
+    :func:`time_ms` on one input, with as many trials (3 to 21) as fit
+    in about two seconds.  K2–K4's points, rects and foci are a few
+    megabytes and stay in L2 from call to call, as they do right after
+    the plane uploads them; a call takes milliseconds, so rotating them
+    out of L2 would change its time by microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    reps = int(min(21, max(3, 2000.0 / max(a.elapsed_time(b), 1e-3))))
+    return time_ms(torch, [fn], reps)
+
+
+def roofline(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time in ms for ``nbytes`` moved and ``ops`` float32
+    operations, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def k1_bound(p: int, g1: int) -> tuple[float, str, int]:
     """Least time for one round close of a (6, p, g1) bank: each input
     read once, each of the 5 outputs written once, against the adds of
     three scans and the five channel updates."""
     nbytes = (6 + 5) * p * g1 * 4
-    ops = (3 + 5) * p * g1
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+    return (*roofline(nbytes, (3 + 5) * p * g1), nbytes)
+
+
+def k2_cost(n: int, q: int) -> dict:
+    """K2's least time: points (n, 2) and rects (q, 4) read once, the two
+    int32 count vectors written once; 4 compares + 3 ands + 1 add per
+    (point, rect) pair."""
+    nbytes = n * 8 + q * 16 + (n + q) * 4
+    ops = 8 * n * q
+    bound_ms, bound_by = roofline(nbytes, ops)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "peak_ops_per_s": FP32_OPS_PER_S}
+
+
+def k3_cost(n: int, q: int, t: int, inside: int) -> dict:
+    """K3's least time: points, rects, both (·, t) float32 masks read
+    once, the counts written once; K2's 8 operations per pair, plus the
+    ceil(t/32) word tests of each of the ``inside`` pairs that pass the
+    spatial test (the only pairs whose keywords this data needs)."""
+    nbytes = n * 8 + q * 16 + (n + q) * t * 4 + (n + q) * 4
+    ops = 8 * n * q + -(-t // 32) * inside
+    bound_ms, bound_by = roofline(nbytes, ops)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "inside_pairs": inside,
+            "peak_ops_per_s": FP32_OPS_PER_S}
+
+
+def k4_cost(n: int, q: int, k: int) -> dict:
+    """K4's least time: points (n, 2) and foci (q, 2) read once, the
+    (q, k) distances written once; 2 subs + 2 muls + 1 add + 1 compare
+    against the k-th per (point, focus) pair."""
+    nbytes = (n + q) * 8 + q * k * 4
+    ops = 6 * n * q
+    bound_ms, bound_by = roofline(nbytes, ops)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "peak_ops_per_s": FP32_OPS_PER_S}
+
+
+def counts_error(torch, got, want, what: str) -> int:
+    """Largest difference of two (per-point, per-query) count pairs,
+    which must be 0."""
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        check(a.dtype == torch.int32 and torch.equal(a, b),
+              f"{what}: counts differ from the plain version")
+    return max(int((a - b).abs().max()) if a.numel() else 0
+               for a, b in zip(got, want))
+
+
+def device_masks(torch, np, ids, t: int, device):
+    """(rows, K) bucket ids (−1 = none) → (rows, t) float32 0/1 masks
+    built on the card, as ``bucket_masks`` builds them on the host."""
+    ids = torch.from_numpy(np.asarray(ids, np.int64)).to(device)
+    out = torch.zeros((ids.shape[0], t), dtype=torch.float32, device=device)
+    return out.scatter_reduce_(1, ids.clamp_min(0), (ids >= 0).float(),
+                               reduce="amax")
 
 
 def k1_times(torch, SU, bank6, decay) -> dict:
@@ -151,6 +266,375 @@ def phase_kernel(torch, SU, device) -> float:
                       "max_abs_err": err,
                       **k1_times(torch, SU, bank6, decay)})
     return worst
+
+
+def k2_row(torch, SM, pts, rects) -> dict:
+    """K2 against its plain version on card tensors: error, times,
+    bound."""
+    got = SM.spatial_match(pts, rects)
+    err = counts_error(torch, got, SM.spatial_match_ref(pts, rects), "K2")
+    return {"max_abs_err": err, "hits": int(got[0].sum()),
+            "ms": time_call_ms(torch, lambda: SM.spatial_match(pts, rects)),
+            "plain_ms": time_call_ms(
+                torch, lambda: SM.spatial_match_ref(pts, rects)),
+            **k2_cost(pts.shape[0], rects.shape[0])}
+
+
+def k3_row(torch, SM, KM, pts, pm, rects, sm) -> dict:
+    """K3 against its plain version on card tensors, the plain version's
+    miss matmul in TF32 (0/1 inputs and a float32 accumulator keep it
+    exact); K3 may count no more than K2 on the same points and rects."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    got = KM.keyword_match(pts, pm, rects, sm)
+    err = counts_error(torch, got, KM.keyword_match_ref(pts, pm, rects, sm),
+                       "K3")
+    spatial = SM.spatial_match(pts, rects)
+    check(all(bool((a <= b).all()) for a, b in zip(got, spatial)),
+          "K3 counted a pair that K2 does not")
+    n, t = pm.shape
+    return {"max_abs_err": err, "deliveries": int(got[0].sum()),
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "ms": time_call_ms(
+                torch, lambda: KM.keyword_match(pts, pm, rects, sm)),
+            "plain_ms": time_call_ms(
+                torch, lambda: KM.keyword_match_ref(pts, pm, rects, sm)),
+            **k3_cost(n, rects.shape[0], t, int(spatial[0].sum()))}
+
+
+def k4_row(torch, KN, pts, foci, k: int) -> dict:
+    """K4 against its plain version on card tensors (equal bit for bit:
+    both round each product, then the sum)."""
+    got = KN.knn_match(pts, foci, k)
+    want = KN.knn_match_ref(pts, foci, k)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K4: distances differ from the plain "
+          "version")
+    return {"max_abs_err": float((got - want).abs().max()),
+            "ms": time_call_ms(torch, lambda: KN.knn_match(pts, foci, k)),
+            "plain_ms": time_call_ms(
+                torch, lambda: KN.knn_match_ref(pts, foci, k)),
+            **k4_cost(pts.shape[0], foci.shape[0], k)}
+
+
+def _match_inputs(T, np, n: int, q: int):
+    """``n`` tuples of the main path's hotspot peak tick and ``q`` of its
+    standing range queries (the ``uniform_normal`` source, seed 0)."""
+    src = T.scenario("uniform_normal", seed=0, horizon=TICKS)
+    rects = np.asarray(src.sample_queries(q), np.float32)
+    return np.asarray(src.sample_points(n, TICKS // 2), np.float32), rects
+
+
+def _centres(np, rects):
+    return np.stack([(rects[:, 0] + rects[:, 2]) * 0.5,
+                     (rects[:, 1] + rects[:, 3]) * 0.5], 1).astype(np.float32)
+
+
+def _on(torch, device, *arrays):
+    return [torch.from_numpy(np_a).to(device) for np_a in arrays]
+
+
+def phase_k2(torch, T, np, SM, device) -> int:
+    """K2 at N in {4096, 131 072} tuples × Q in {1000, 100 000} rects."""
+    worst = 0
+    for n in K24_N:
+        for q in K24_Q:
+            pts, rects = _on(torch, device, *_match_inputs(T, np, n, q))
+            row = k2_row(torch, SM, pts, rects)
+            worst = max(worst, row["max_abs_err"])
+            emit({"phase": "k2", "n": n, "q": q, **row})
+    return worst
+
+
+def phase_k4(torch, T, np, KN, device) -> float:
+    """K4 at N in {4096, 131 072} points × Q in {1000, 100 000} foci (the
+    queries' centres), k = 8."""
+    worst = 0.0
+    for n in K24_N:
+        for q in K24_Q:
+            pts, rects = _match_inputs(T, np, n, q)
+            pts, foci = _on(torch, device, pts, _centres(np, rects))
+            row = k4_row(torch, KN, pts, foci, KNN_K)
+            worst = max(worst, row["max_abs_err"])
+            emit({"phase": "k4", "n": n, "q": q, "k": KNN_K, **row})
+    return worst
+
+
+def _ps_spec(T, ticks: int, subs: int):
+    return T.ScenarioSpec("hot_hashtags", ticks=ticks, preload_queries=subs,
+                          query_burst=0, hot_terms=PS_HOT_TERMS,
+                          term_peak=PS_TERM_PEAK)
+
+
+def _ps_cfg(T, subs: int):
+    # per-tick engine, capacity scaled with the standing subscriptions,
+    # as in benchmarks/pubsub.py's timed section
+    return T.EngineConfig(num_machines=PS_MACHINES,
+                          cap_units=PS_CAP_PER_SUB * subs,
+                          lambda_max=PS_LAMBDA, mem_queries=10**8)
+
+
+def _delivery_tick(T, np, n: int, q: int):
+    """One mid-migration tick of the pub/sub deployment's source: ``n``
+    tuples and their terms, ``q`` standing subscriptions and theirs."""
+    wl = T.WorkloadSpec(query_model="spatial_keyword")
+    src = _ps_spec(T, PS_TICKS, q).build(seed=0, workload=wl)
+    tick = PS_TICKS // 2
+    pts = np.asarray(src.sample_points(n, tick), np.float32)
+    terms = src.sample_terms(pts, tick, wl.tuple_terms)
+    rects = np.asarray(src.sample_queries(q), np.float32)
+    sub_terms = src.sample_subscription_terms(q, tick, wl.sub_terms)
+    return wl, pts, terms, rects, sub_terms
+
+
+def phase_k3(torch, T, np, SM, KM, device) -> int:
+    """K3 at N = 20 000 tuples × Q in {65 536, 1 000 000} subscriptions ×
+    T in {32, 4096} buckets, every tenth subscription a wildcard (no
+    keywords); then all-zero subscription masks must give K2's counts."""
+    worst = 0
+    for q in K3_Q:
+        _, pts, terms, rects, sub_terms = _delivery_tick(T, np, PS_LAMBDA, q)
+        sub_terms = np.array(sub_terms)
+        sub_terms[::10] = -1
+        pts_d, rects_d = _on(torch, device, pts, rects)
+        for t in K3_T:
+            hasher = T.TermHasher(t)
+            pm = device_masks(torch, np, hasher.buckets(terms), t, device)
+            sm = device_masks(torch, np, hasher.buckets(sub_terms), t, device)
+            row = k3_row(torch, SM, KM, pts_d, pm, rects_d, sm)
+            worst = max(worst, row["max_abs_err"])
+            emit({"phase": "k3", "n": PS_LAMBDA, "q": q, "t": t,
+                  "wildcard_share": 0.1, **row})
+            del pm, sm
+            torch.cuda.empty_cache()
+    pm = device_masks(torch, np, T.TermHasher(32).buckets(terms), 32, device)
+    sm = torch.zeros((len(rects), 32), dtype=torch.float32, device=device)
+    counts_error(torch, KM.keyword_match(pts_d, pm, rects_d, sm),
+                 SM.spatial_match(pts_d, rects_d), "K3 with wildcards vs K2")
+    emit({"phase": "k3", "wildcards_equal_k2": True, "q": len(rects)})
+    return worst
+
+
+def reset_launches(kern: dict) -> None:
+    """Set every kernel wrapper's launch count to 0 (``kern`` maps a
+    kernel's name to its package)."""
+    for pkg in kern.values():
+        pkg.ops.launches = 0
+
+
+def read_launches(kern: dict) -> dict:
+    return {name: pkg.ops.launches for name, pkg in kern.items()}
+
+
+def phase_match(torch, T, np, kern, plane, device) -> dict:
+    """The exact-match API at the main path's size (PERF.md §4): one
+    hotspot-tick batch of LAMBDA tuples against the QUERIES standing
+    range queries through ``TorchPlane.match_counts`` (K2), and against
+    their centres as kNN foci through ``knn_distances`` (K4), each equal
+    to its plain version on the card."""
+    SM, KN = kern["spatial_match"], kern["knn_match"]
+    pts, rects = _match_inputs(T, np, LAMBDA, QUERIES)
+    foci = _centres(np, rects)
+    reset_launches(kern)                      # counts from here …
+    t0 = time.perf_counter()
+    pc, qc = plane.match_counts(pts, rects)
+    t1 = time.perf_counter()
+    dist = plane.knn_distances(pts, foci, k=KNN_K)
+    t2 = time.perf_counter()
+    launches = read_launches(kern)            # … to here
+    check(launches == {"stats_update": 0, "spatial_match": 1,
+                       "keyword_match": 0, "knn_match": 1},
+          f"match: launches {launches}, one K2 and one K4 expected")
+    pts_d, rects_d, foci_d = _on(torch, device, pts, rects, foci)
+    counts_error(torch, _on(torch, device, pc, qc),
+                 SM.spatial_match_ref(pts_d, rects_d), "match: K2")
+    check(np.array_equal(dist, KN.knn_match_ref(pts_d, foci_d, KNN_K)
+                         .cpu().numpy()), "match: K4 differs from plain")
+    check(pc.dtype == np.int32 and pc.shape == (LAMBDA,)
+          and qc.shape == (QUERIES,) and int(pc.sum()) == int(qc.sum()),
+          "match: count shapes or totals")
+    check(dist.shape == (QUERIES, KNN_K) and np.isfinite(dist).all()
+          and (np.diff(dist, axis=1) >= 0).all(), "match: kNN distances")
+    emit({"phase": "match", "tuples": LAMBDA, "queries": QUERIES,
+          "k": KNN_K, "pairs_matched": int(pc.sum()),
+          "queries_hit": int((qc > 0).sum()),
+          "tuples_matched": int((pc > 0).sum()),
+          "match_counts_wall_s": t1 - t0, "knn_distances_wall_s": t2 - t1,
+          "mean_kth_distance": float(dist[:, -1].mean()),
+          "launches": launches})
+    return {"pts": pts_d, "rects": rects_d, "foci": foci_d,
+            "launches": launches}
+
+
+def _covered(np, terms, sub_terms):
+    """(N, Q) exact per-term conjunction: every subscription term is
+    among the tuple's terms."""
+    tsets = [set(map(int, row)) for row in terms]
+    return np.array([[set(map(int, s)) <= ts for s in sub_terms]
+                     for ts in tsets])
+
+
+def _collision_bound(T, np, plane, wl) -> dict:
+    """benchmarks/pubsub.py's collision bound on the card plane (and the
+    port's NumPy plane): hashed-bucket matching never drops an exact
+    per-term match (12 terms into 8 buckets overcount), and with an
+    injective bucket map (40 terms into 4096 buckets) it is exact."""
+    rng = np.random.default_rng(11)
+    n, q = 300, 400
+    pts = rng.random((n, 2)).astype(np.float32)
+    lo = rng.random((q, 2)) * 0.8
+    rects = np.concatenate([lo, np.minimum(lo + 0.2, 1.0)],
+                           1).astype(np.float32)
+    inside = ((pts[:, None, 0] >= rects[None, :, 0])
+              & (pts[:, None, 0] <= rects[None, :, 2])
+              & (pts[:, None, 1] >= rects[None, :, 1])
+              & (pts[:, None, 1] <= rects[None, :, 3]))
+    out = {}
+    for hasher, vocab in ((T.TermHasher(8), 12), (T.TermHasher(4096), 40)):
+        terms = rng.integers(0, vocab, (n, wl.tuple_terms))
+        sub_terms = rng.integers(0, vocab, (q, wl.sub_terms))
+        exact = inside & _covered(np, terms, sub_terms)
+        pm = T.bucket_masks(hasher.buckets(terms), hasher.n_buckets)
+        sm = hasher.sub_masks(sub_terms)
+        for p in (T.NumpyPlane(), plane):
+            per_pt, per_sub = p.keyword_match_counts(pts, pm, rects, sm)
+            check((per_pt >= exact.sum(1)).all()
+                  and (per_sub >= exact.sum(0)).all(),
+                  f"{p.name}: hashed matching dropped a true match")
+        if hasher.n_buckets == 4096:
+            used = np.unique(np.concatenate([terms.ravel(),
+                                             sub_terms.ravel()]))
+            check(len(np.unique(hasher.buckets(used))) == len(used),
+                  "collision fixture not injective")
+            check(np.array_equal(per_pt, exact.sum(1)),
+                  "injective bucket map: hashed != exact")
+        out[f"T={hasher.n_buckets}"] = {
+            "exact": int(exact.sum()),
+            "overcount": int(per_pt.sum() - exact.sum())}
+    return out
+
+
+def _pubsub_parity(T, np, wl, plane_name: str) -> dict:
+    """benchmarks/pubsub.py's plane parity: the same routed timeline on
+    the card plane and the port's NumPy plane, counts exact, float
+    metrics within rtol 1e-5."""
+    base = T.Experiment(
+        router=T.RouterSpec("swarm", grid_size=PS_GRID, history_seed=1),
+        scenario=_ps_spec(T, PS_PARITY_TICKS, PS_PARITY_SUBS), workload=wl,
+        engine=_ps_cfg(T, PS_PARITY_SUBS), data_plane="numpy")
+    a = T.run(base).metrics.asarrays()
+    b = T.run(base.with_(data_plane=plane_name)).metrics.asarrays()
+    for name in ("injected", "transfers"):
+        check(np.array_equal(np.asarray(a[name], np.float64),
+                             np.asarray(b[name], np.float64)),
+              f"pubsub parity: {name} differs")
+    for name in ("units_of_work", "deliveries", "latency", "throughput"):
+        np.testing.assert_allclose(np.asarray(b[name], np.float64),
+                                   np.asarray(a[name], np.float64),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    return {"ticks": PS_PARITY_TICKS, "subscriptions": PS_PARITY_SUBS,
+            "transfers": int(np.sum(b["transfers"])),
+            "deliveries": float(np.sum(b["deliveries"]))}
+
+
+def phase_pubsub(torch, T, np, kern, plane, plane_name, device) -> dict:
+    """The pub/sub deployment of benchmarks/pubsub.py on the card plane:
+    its collision-bound and plane-parity gates, SWARM and static-history
+    through ``run_suite`` (1 000 000 subscriptions, 60 ticks; SWARM must
+    sustain 2× static-history's hot-window throughput, K1 must launch
+    once per SWARM round close), then one full-scale delivery tick
+    through ``keyword_match_counts`` (K3), held against its plain version
+    and K2."""
+    wl = T.WorkloadSpec(query_model="spatial_keyword")
+    reset_launches(kern)                      # counts from here …
+    bound = _collision_bound(T, np, plane, wl)
+    parity = _pubsub_parity(T, np, wl, plane_name)
+
+    k1_before = kern["stats_update"].ops.launches
+    exps = {name: T.Experiment(
+        router=T.RouterSpec(name, grid_size=PS_GRID, history_seed=1),
+        scenario=_ps_spec(T, PS_TICKS, PS_SUBS), workload=wl,
+        engine=_ps_cfg(T, PS_SUBS), data_plane=plane_name)
+        for name in ("swarm", "static_history")}
+    results = T.run_suite(exps.values())
+    k1_suite = kern["stats_update"].ops.launches - k1_before
+    lo, hi = PS_TICKS // 6, PS_TICKS // 6 + 2 * PS_TICKS // 3   # hot window
+    systems = {}
+    for name, exp in exps.items():
+        res = results[exp.label]
+        a = res.asarrays()
+        for key, val in a.items():
+            check(np.isfinite(np.asarray(val, np.float64)).all(),
+                  f"pubsub {name}: {key} not finite")
+        check(len(a["throughput"]) == PS_TICKS, f"pubsub {name}: ticks")
+        thr = np.asarray(a["throughput"], np.float64)
+        lat = np.asarray(a["latency"], np.float64)
+        systems[name] = {"thr_hot": float(thr[lo:hi].mean()),
+                         "lat_hot": float(lat[lo:hi].mean()),
+                         "deliveries": float(np.sum(a["deliveries"])),
+                         "transfers": int(np.sum(a["transfers"])),
+                         "wall_s": res.wall_s}
+    rounds = results[exps["swarm"].label].router.swarm.round_no
+    check(rounds > 0 and k1_suite == rounds,
+          f"pubsub: K1 launched {k1_suite}× for {rounds} SWARM round closes")
+    ratio = systems["swarm"]["thr_hot"] / max(
+        systems["static_history"]["thr_hot"], 1e-9)
+    check(ratio >= 2.0, f"pubsub: SWARM {ratio:.2f}× static-history "
+          "hot-window throughput, 2× required")
+
+    # one delivery tick at full scale through the exact-match API
+    _, pts, terms, rects, sub_terms = _delivery_tick(T, np, PS_LAMBDA,
+                                                     PS_SUBS)
+    hasher = T.TermHasher(wl.term_buckets)
+    pm = T.bucket_masks(hasher.buckets(terms), hasher.n_buckets)
+    sm = hasher.sub_masks(sub_terms)
+    k3_before = kern["keyword_match"].ops.launches
+    t0 = time.perf_counter()
+    pc, qc = plane.keyword_match_counts(pts, pm, rects, sm)
+    tick_s = time.perf_counter() - t0
+    launches = read_launches(kern)            # … to here
+    check(launches["keyword_match"] == k3_before + 1,
+          "pubsub: the delivery tick did not launch K3 once")
+    check(launches["stats_update"] > 0 and launches["keyword_match"] > 0,
+          f"pubsub: launches {launches}")
+    pts_d, pm_d, rects_d, sm_d = _on(torch, device, pts, pm, rects, sm)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    counts_error(torch, _on(torch, device, pc, qc),
+                 kern["keyword_match"].keyword_match_ref(pts_d, pm_d,
+                                                         rects_d, sm_d),
+                 "pubsub: K3")
+    spatial = kern["spatial_match"].spatial_match(pts_d, rects_d)[0]
+    check(bool((torch.from_numpy(pc).to(device) <= spatial).all()),
+          "pubsub: K3 delivered more than K2 matched")
+    idx = T.SubscriptionIndex.build(hasher, rects, sub_terms)
+    probes = hasher.tuple_buckets(terms)
+    posting = np.array([len(idx.posting(b))
+                        for b in range(hasher.n_buckets + 1)])
+    cand = np.where(probes >= 0, posting[np.maximum(probes, 0)], 0).sum(1)
+    for i in range(16):           # the closed form against the index
+        check(cand[i] == len(idx.candidates(probes[i])),
+              "pubsub: candidate count differs from SubscriptionIndex")
+    out = {"phase": "pubsub", "grid": PS_GRID, "machines": PS_MACHINES,
+           "subscriptions": PS_SUBS, "ticks": PS_TICKS,
+           "lambda_max": PS_LAMBDA, "hot_terms": PS_HOT_TERMS,
+           "term_peak": PS_TERM_PEAK, "cap_units": PS_CAP_PER_SUB * PS_SUBS,
+           "term_buckets": wl.term_buckets, "cuts": [],
+           "collision_bound": bound, "parity": parity, "systems": systems,
+           "throughput_ratio": ratio,
+           "latency_ratio": systems["static_history"]["lat_hot"]
+           / max(systems["swarm"]["lat_hot"], 1e-9),
+           "swarm_rounds": rounds, "k1_launches_suite": k1_suite,
+           "delivery_tick": {
+               "tuples": PS_LAMBDA, "tick": PS_TICKS // 2,
+               "deliveries": int(pc.sum()),
+               "subscriptions_hit": int((qc > 0).sum()),
+               "spatial_matches": int(spatial.sum()),
+               "candidates_per_tuple": float(cand.mean()),
+               "candidate_share": float(cand.mean() / PS_SUBS),
+               "wall_s": tick_s},
+           "launches": launches}
+    emit(out)
+    return {"pts": pts_d, "pm": pm_d, "rects": rects_d, "sm": sm_d,
+            "launches": launches}
 
 
 def _small_run(T, plane, timeline: str):
@@ -368,7 +852,12 @@ def main() -> int:
     import repro_torch.streaming as T
     from repro_torch import kernels
     from repro_torch.kernels import _build
+    from repro_torch.kernels import keyword_match as KM
+    from repro_torch.kernels import knn_match as KN
+    from repro_torch.kernels import spatial_match as SM
     from repro_torch.kernels import stats_update as SU
+    kern = {"stats_update": SU, "spatial_match": SM, "keyword_match": KM,
+            "knn_match": KN}
 
     device = torch.device("cuda")
     smi = nvidia_smi()
@@ -380,26 +869,55 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc": _build.BUILD_LOG})
     worst = phase_kernel(torch, SU, device)
+    worst_k2 = phase_k2(torch, T, np, SM, device)
+    worst_k3 = phase_k3(torch, T, np, SM, KM, device)
+    worst_k4 = phase_k4(torch, T, np, KN, device)
     plane = T.TorchPlane("cuda")
     phase_parity(T, np, plane)
     phase_tf32(torch, T, np, plane)
     main_out = phase_main(torch, T, np, SU)
     last = phase_breakdown(torch, T, np, SU, main_out)
     phase_profile(torch, T, np, main_out)
+    match = phase_match(torch, T, np, kern, plane, device)
+    pubsub = phase_pubsub(torch, T, np, kern, plane, "torch", device)
 
-    # the kernels line: K1 at the main path's last round-close input
+    # the kernels line: each kernel at the input its path gave it — K1 at
+    # the main path's last round-close input, K2 and K4 at phase match's
+    # tick, K3 at phase pubsub's delivery tick
     bank6, decay = last["bank6"], last["decay"]
     worst = max(worst, k1_error(torch, SU, bank6, decay))
     times = k1_times(torch, SU, bank6, decay)
+    k2 = k2_row(torch, SM, match["pts"], match["rects"])
+    k3 = k3_row(torch, SM, KM, pubsub["pts"], pubsub["pm"], pubsub["rects"],
+                pubsub["sm"])
+    k4 = k4_row(torch, KN, match["pts"], match["foci"], KNN_K)
+    emit({"library_ms": {
+        "spatial_match": "null: no single PyTorch call computes the "
+                         "inclusive containment counts of both sides",
+        "keyword_match": "null: no single PyTorch call computes the join; "
+                         "a matmul gives only the keyword miss counts",
+        "knn_match": "null: no single PyTorch call gives the k smallest "
+                     "squared distances (cdist and topk are two calls)"}})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "stats_update", "route": "cuda",
-        "source": "src/repro_torch/kernels/stats_update/stats_update.cu",
-        "replaces": "src/repro/kernels/stats_update/stats_update.py:38",
-        "launches": main_out["k1_launches"], "max_abs_err": worst,
-        "ms": times["ms"], "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
-        "library_ms": times["library_ms"]}]})
+
+    def row(name, launches, err, t, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/{name}/{name}.cu",
+                "replaces": REPLACES[name], "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": library_ms}
+
+    emit({"kernels": [
+        row("stats_update", main_out["k1_launches"], worst, times,
+            times["library_ms"]),
+        row("spatial_match", match["launches"]["spatial_match"],
+            max(worst_k2, k2["max_abs_err"]), k2),
+        row("keyword_match", pubsub["launches"]["keyword_match"],
+            max(worst_k3, k3["max_abs_err"]), k3),
+        row("knn_match", match["launches"]["knn_match"],
+            max(worst_k4, k4["max_abs_err"]), k4)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -22,7 +22,9 @@ Two implementations:
   kernel of ``kernels.stats_update`` over the *live* partition subset
   only (retired/unallocated rows are zero or never read again, so
   skipping them is exact; the reference closes the whole capacity bank);
-  on ``device="cpu"`` it runs that kernel's plain PyTorch version.
+  the exact-match API runs the kernels of ``kernels.spatial_match``,
+  ``keyword_match`` and ``knn_match``.  On ``device="cpu"`` every
+  kernel's plain PyTorch version runs instead.
 
 Besides the stateless per-call API, both planes implement the
 *device-resident* fused-ingest contract of ``streaming.fused``:
@@ -564,8 +566,10 @@ class TorchPlane(DataPlane):
     exact integer scatter-adds, never with a float32 matmul, so TF32
     cannot round a count whatever the process's matmul settings; the
     cost and queue contractions are elementwise products summed in
-    float32 (no matmul either).  Exact tuple↔query match work (kernels
-    K2–K4) is not ported yet (ROADMAP Queue 2)."""
+    float32 (no matmul either).  Exact tuple↔query match work runs on
+    the card's kernels K2 (``match_counts``), K3
+    (``keyword_match_counts``) and K4 (``knn_distances``), and on their
+    plain PyTorch versions for ``device="cpu"``."""
 
     name = "torch"
 
@@ -723,20 +727,22 @@ class TorchPlane(DataPlane):
         return (self._host(pids_t, np.int32), self._host(owners_t, np.int32),
                 self._host(costs, np.float32))
 
+    # -- exact match work: kernels K2–K4 on the card ------------------------
     def match_counts(self, points, rects):
-        raise NotImplementedError(
-            "exact spatial match counts run on kernel K2 (spatial_match), "
-            "not ported yet: ROADMAP Queue 2 / Queue 1 item 5")
+        from ..kernels.spatial_match import spatial_match
+        pc, qc = spatial_match(self._batch(points), self._batch(rects))
+        return self._host(pc, np.int32), self._host(qc, np.int32)
 
     def keyword_match_counts(self, points, pt_masks, rects, sub_masks):
-        raise NotImplementedError(
-            "exact keyword match counts run on kernel K3 (keyword_match), "
-            "not ported yet: ROADMAP Queue 2 / Queue 1 item 5")
+        from ..kernels.keyword_match import keyword_match
+        pc, qc = keyword_match(self._batch(points), self._batch(pt_masks),
+                               self._batch(rects), self._batch(sub_masks))
+        return self._host(pc, np.int32), self._host(qc, np.int32)
 
     def knn_distances(self, points, foci, k: int = 8):
-        raise NotImplementedError(
-            "kNN distances run on kernel K4 (knn_match), not ported yet: "
-            "ROADMAP Queue 2 / Queue 1 item 5")
+        from ..kernels.knn_match import knn_match
+        out = knn_match(self._batch(points), self._batch(foci), k=k)
+        return self._host(out, np.float32)
 
     # -- control plane ------------------------------------------------------
     def close_round(self, stats, decay: float, live) -> None:

@@ -1,7 +1,7 @@
-"""The PyTorch port on a CUDA card: kernel K1 against its plain version,
-one K1 launch per round close, exact window counts with TF32 enabled
-(ROADMAP F2), and the main path on ``TorchPlane("cuda")`` against the
-port's own NumPy reference plane.  Every test here needs the card and
+"""The PyTorch port on a CUDA card: kernels K1–K4 against their plain
+versions (exact), one K1 launch per round close, exact window counts
+with TF32 enabled (ROADMAP F2), the exact-match API and the main path
+on ``TorchPlane("cuda")`` against the port's own NumPy reference plane.  Every test here needs the card and
 skips without one; the file imports nothing of JAX, so it runs on a
 machine that has only PyTorch:
 
@@ -15,7 +15,11 @@ torch = pytest.importorskip("torch")
 import repro_torch.streaming as T  # noqa: E402
 from repro_torch.core import statistics as S  # noqa: E402
 from repro_torch.core.geometry import points_to_cells  # noqa: E402
+from repro_torch.kernels import keyword_match as KM  # noqa: E402
+from repro_torch.kernels import knn_match as KN  # noqa: E402
+from repro_torch.kernels import spatial_match as SM  # noqa: E402
 from repro_torch.kernels import stats_update as SU  # noqa: E402
+from repro_torch.queries import TermHasher, bucket_masks  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -146,3 +150,123 @@ def test_declined_window_leaves_the_state_untouched(cuda_device):
     for a, b in zip(state, before):
         if a is not None:
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K2–K4 and the exact-match API
+# ---------------------------------------------------------------------------
+
+def _points_rects(seed, n, q):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    c = rng.uniform(0, 0.9, (q, 2))
+    rects = np.concatenate([c, c + rng.uniform(0.005, 0.2, (q, 2))],
+                           1).astype(np.float32)
+    pts[: min(n, q)] = rects[: min(n, q), :2]      # points on rect borders
+    return pts, rects
+
+
+def _masks(seed, n, q, t):
+    rng = np.random.default_rng(seed)
+    pm = (rng.random((n, t)) < 0.5).astype(np.float32)
+    sm = (rng.random((q, t)) < 2.0 / t).astype(np.float32)
+    sm[::7] = 0.0                                  # wildcard subscriptions
+    return pm, sm
+
+
+def _dev(device, *arrays):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("n,q", [(1, 1), (7, 130), (513, 256), (4096, 1000),
+                                 (20000, 70000)])
+def test_spatial_match_kernel_equals_plain_version(cuda_device, n, q):
+    pts, rects = _dev(cuda_device, *_points_rects(n + q, n, q))
+    before = SM.ops.launches
+    got = SM.spatial_match(pts, rects)
+    torch.cuda.synchronize()
+    assert SM.ops.launches == before + 1
+    for a, b in zip(got, SM.spatial_match_ref(pts, rects)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("t", [1, 11, 32, 33, 100])
+@pytest.mark.parametrize("n,q", [(300, 2000), (5000, 3000)])
+def test_keyword_match_kernel_equals_plain_version_with_tf32(cuda_device, n,
+                                                            q, t):
+    pts, rects = _points_rects(n + t, n, q)
+    pm, sm = _masks(t, n, q, t)
+    args = _dev(cuda_device, pts, pm, rects, sm)
+    before = KM.ops.launches
+    got = KM.keyword_match(*args)
+    torch.cuda.synchronize()
+    assert KM.ops.launches == before + 1
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        want = KM.keyword_match_ref(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    spatial = SM.spatial_match(args[0], args[2])[0]
+    assert bool((got[0] <= spatial).all()) and int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 12, 16])
+@pytest.mark.parametrize("n,q", [(16, 5), (3000, 700), (50000, 20000)])
+def test_knn_match_kernel_equals_plain_version(cuda_device, n, q, k):
+    rng = np.random.default_rng(n + q + k)
+    pts, foci = _dev(cuda_device, rng.uniform(0, 1, (n, 2)).astype(np.float32),
+                     rng.uniform(0, 1, (q, 2)).astype(np.float32))
+    pts[: n // 3] = pts[n // 3: 2 * (n // 3)]       # duplicate points
+    before = KN.ops.launches
+    got = KN.knn_match(pts, foci, k=k)
+    torch.cuda.synchronize()
+    assert KN.ops.launches == before + 1
+    assert torch.equal(got, KN.knn_match_ref(pts, foci, k))
+
+
+def test_knn_match_rejects_k_above_its_range_on_the_card(cuda_device):
+    pts = torch.zeros((40, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="1 <= k <= 16"):
+        KN.knn_match(pts, pts, k=17)
+    with pytest.raises(ValueError, match="batch of 5"):
+        KN.knn_match(pts[:5], pts, k=8)
+
+
+def test_kernels_take_offset_views(cuda_device):
+    """A view that starts between vector-width rows is realigned by the
+    wrappers, not read misaligned by the kernels."""
+    pts, rects = _points_rects(3, 300, 200)
+    flat = torch.from_numpy(np.concatenate([[0.0], pts.ravel()]).astype(
+        np.float32)).to(cuda_device)
+    view = flat[1:].view(300, 2)
+    rect_t = _dev(cuda_device, rects)[0]
+    for a, b in zip(SM.spatial_match(view, rect_t),
+                    SM.spatial_match_ref(view, rect_t)):
+        assert torch.equal(a, b)
+    assert torch.equal(KN.knn_match(view, view[:50], k=4),
+                       KN.knn_match_ref(view, view[:50], 4))
+
+
+def test_exact_match_api_on_the_card_matches_the_numpy_plane(cuda_device):
+    rng = np.random.default_rng(3)
+    pts, rects = _points_rects(3, 4000, 1500)
+    h = TermHasher(32)
+    pm = bucket_masks(h.buckets(rng.integers(0, 60, (4000, 3))), 32)
+    sm = h.sub_masks(rng.integers(0, 60, (1500, 2)))
+    foci = rng.uniform(0, 1, (300, 2)).astype(np.float32)
+    card, ref = T.TorchPlane("cuda"), T.NumpyPlane()
+    before = (SM.ops.launches, KM.ops.launches, KN.ops.launches)
+    for a, b in zip(card.match_counts(pts, rects),
+                    ref.match_counts(pts, rects)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(card.keyword_match_counts(pts, pm, rects, sm),
+                    ref.keyword_match_counts(pts, pm, rects, sm)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(card.knn_distances(pts, foci, k=8),
+                                  ref.knn_distances(pts, foci, k=8))
+    assert (SM.ops.launches, KM.ops.launches, KN.ops.launches) == tuple(
+        x + 1 for x in before)

@@ -40,6 +40,12 @@ REWRITTEN = [
     "streaming/experiments.py", "streaming/planes.py",
     "kernels/__init__.py", "kernels/stats_update/__init__.py",
     "kernels/stats_update/ops.py", "kernels/stats_update/ref.py",
+    "kernels/spatial_match/__init__.py", "kernels/spatial_match/ops.py",
+    "kernels/spatial_match/ref.py",
+    "kernels/keyword_match/__init__.py", "kernels/keyword_match/ops.py",
+    "kernels/keyword_match/ref.py",
+    "kernels/knn_match/__init__.py", "kernels/knn_match/ops.py",
+    "kernels/knn_match/ref.py",
 ]
 
 

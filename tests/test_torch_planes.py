@@ -373,7 +373,7 @@ def test_window_counts_exact_above_2048_with_tf32_enabled():
 
 
 # ---------------------------------------------------------------------------
-# No fallback that hides the device, and the stubs off the main path
+# No fallback that hides the device, and the sharded plane's stub
 # ---------------------------------------------------------------------------
 
 def test_torch_plane_defaults_to_the_card():
@@ -389,18 +389,6 @@ def test_torch_plane_defaults_to_the_card():
     assert CPU.device.type == "cpu"
     assert T.get_plane("torch-cpu").device.type == "cpu"
     assert set(T.available_planes()) == {"numpy", "torch", "torch-cpu"}
-
-
-@pytest.mark.parametrize("call,kernel", [
-    (lambda p: p.match_counts(np.zeros((4, 2)), np.zeros((2, 4))), "K2"),
-    (lambda p: p.keyword_match_counts(np.zeros((4, 2)), np.zeros((4, 3)),
-                                      np.zeros((2, 4)), np.zeros((2, 3))),
-     "K3"),
-    (lambda p: p.knn_distances(np.zeros((4, 2)), np.zeros((2, 2))), "K4"),
-])
-def test_unported_match_kernels_raise_naming_the_roadmap(call, kernel):
-    with pytest.raises(NotImplementedError, match=f"{kernel}.*Queue 2"):
-        call(CPU)
 
 
 def test_sharded_plane_raises_naming_the_roadmap():
