@@ -5,7 +5,7 @@
 
 It builds every kernel of the port from the sources in the checkout
 (nvcc, at first use), holds each kernel against its plain PyTorch
-version on the card (phases ``k1`` … ``k4``), checks the port against
+version on the card (phases ``k1`` … ``k6``), checks the port against
 its own NumPy reference plane on a small timeline, checks that window
 counts stay exact with TF32 enabled globally, and drives the port's
 paths at realistic sizes:
@@ -24,7 +24,16 @@ paths at realistic sizes:
   (phase ``pubsub``): SWARM and static-history at 1 000 000 standing
   ``spatial_keyword`` subscriptions on the card plane, its plane-parity
   and collision-bound gates, and one full-scale delivery tick through
-  ``keyword_match_counts`` (K3).
+  ``keyword_match_counts`` (K3);
+- the LM serving path (phase ``serve``): ``repro_torch.launch.serve``
+  on qwen2-moe-a2.7b at full width and depth (24 layers, d_model 2048,
+  60 experts top-4), 256 sessions over 4 replicas, replica 0's batch
+  prefilled at 1024 tokens and decoded for 32, every attention on K6
+  and every MoE layer's expert histogram on K5; the same model's
+  prefill and decode calls under ``torch.profiler`` (phase
+  ``serve_profile``); then (phase ``serve_check``) two layers at full
+  width, the kernel path against the plain path and decode against a
+  full forward.
 
 Each phase prints one JSON line; then the card's name and power limit
 as nvidia-smi gives them, the ``kernels`` line, and last
@@ -35,7 +44,9 @@ printing any result.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,6 +56,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 
 # the main path's realistic size (see PERF.md, "Cells")
 GRID, MACHINES = 512, 64       # largest cell of benchmarks/control_plane.py
@@ -67,12 +79,40 @@ PS_PARITY_TICKS, PS_PARITY_SUBS = 24, 20_000
 K24_N, K24_Q = (4096, LAMBDA), (1000, QUERIES)
 K3_Q, K3_T = (65536, PS_SUBS), (32, 4096)
 
+# the LM serving path (PERF.md §4): qwen2-moe-a2.7b at full width and
+# depth; replica 0's share of the sessions is the served batch
+LM_ARCH = "qwen2_moe_a2_7b"
+LM_SESSIONS, LM_REPLICAS, LM_PROMPT, LM_STEPS = 256, 4, 1024, 32
+CHECK_BATCH, CHECK_PROMPT = 2, 128      # phase serve_check, two layers
+# phase k5: (assignments T, top-k K, experts E)
+K5_SHAPES = ((256, 4, 60), (65536, 4, 60), (65536, 6, 64))
+# phase k6: (case, B, H, Hkv, S, Skv, D, type, window, q_offset)
+K6_CASES = (
+    ("qwen2-moe prefill", 64, 16, 16, 1024, 1024, 128, "bfloat16", None, 0),
+    ("qwen2-moe decode", 64, 16, 16, 1, 1056, 128, "bfloat16", None, 1055),
+    ("qwen2-moe decode mid-cache", 64, 16, 16, 1, 1056, 128, "bfloat16",
+     None, 527),
+    ("h2o-danube prefill", 1, 32, 8, 8192, 8192, 80, "bfloat16", 4096, 0),
+    ("gemma prefill", 8, 16, 16, 1024, 1024, 256, "bfloat16", None, 0),
+    ("qwen2-moe prefill f32", 8, 16, 16, 1024, 1024, 128, "float32", None,
+     0),
+    ("h2o-danube prefill f32", 1, 32, 8, 8192, 8192, 80, "float32", 4096,
+     0),
+    ("gemma prefill f32", 2, 16, 16, 1024, 1024, 256, "float32", None, 0),
+    ("qwen2-moe decode f32", 64, 16, 16, 1, 1056, 128, "float32", None,
+     1055),
+    ("h2o-danube decode f32", 4, 32, 8, 1, 8192, 80, "float32", 4096, 8191),
+)
+
 # the TPU kernel each CUDA kernel replaces
 REPLACES = {
     "stats_update": "src/repro/kernels/stats_update/stats_update.py:38",
     "spatial_match": "src/repro/kernels/spatial_match/spatial_match.py:56",
     "keyword_match": "src/repro/kernels/keyword_match/keyword_match.py:65",
     "knn_match": "src/repro/kernels/knn_match/knn_match.py:61",
+    "moe_histogram": "src/repro/kernels/moe_histogram/moe_histogram.py:33",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:72",
 }
 
 
@@ -83,6 +123,18 @@ def emit(obj) -> None:
 def check(cond, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def tf32(torch, on: bool):
+    """TF32 for float32 matmuls on or off inside the block, restored on
+    exit, so that no phase leaks its setting into a later one."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def nvidia_smi() -> str:
@@ -284,20 +336,21 @@ def k3_row(torch, SM, KM, pts, pm, rects, sm) -> dict:
     """K3 against its plain version on card tensors, the plain version's
     miss matmul in TF32 (0/1 inputs and a float32 accumulator keep it
     exact); K3 may count no more than K2 on the same points and rects."""
-    torch.backends.cuda.matmul.allow_tf32 = True
-    got = KM.keyword_match(pts, pm, rects, sm)
-    err = counts_error(torch, got, KM.keyword_match_ref(pts, pm, rects, sm),
-                       "K3")
+    with tf32(torch, True):
+        got = KM.keyword_match(pts, pm, rects, sm)
+        err = counts_error(torch, got,
+                           KM.keyword_match_ref(pts, pm, rects, sm), "K3")
+        plain_ms = time_call_ms(
+            torch, lambda: KM.keyword_match_ref(pts, pm, rects, sm))
     spatial = SM.spatial_match(pts, rects)
     check(all(bool((a <= b).all()) for a, b in zip(got, spatial)),
           "K3 counted a pair that K2 does not")
     n, t = pm.shape
     return {"max_abs_err": err, "deliveries": int(got[0].sum()),
-            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "allow_tf32": True,
             "ms": time_call_ms(
                 torch, lambda: KM.keyword_match(pts, pm, rects, sm)),
-            "plain_ms": time_call_ms(
-                torch, lambda: KM.keyword_match_ref(pts, pm, rects, sm)),
+            "plain_ms": plain_ms,
             **k3_cost(n, rects.shape[0], t, int(spatial[0].sum()))}
 
 
@@ -442,7 +495,8 @@ def phase_match(torch, T, np, kern, plane, device) -> dict:
     t2 = time.perf_counter()
     launches = read_launches(kern)            # … to here
     check(launches == {"stats_update": 0, "spatial_match": 1,
-                       "keyword_match": 0, "knn_match": 1},
+                       "keyword_match": 0, "knn_match": 1,
+                       "moe_histogram": 0, "flash_attention": 0},
           f"match: launches {launches}, one K2 and one K4 expected")
     pts_d, rects_d, foci_d = _on(torch, device, pts, rects, foci)
     counts_error(torch, _on(torch, device, pc, qc),
@@ -597,11 +651,11 @@ def phase_pubsub(torch, T, np, kern, plane, plane_name, device) -> dict:
     check(launches["stats_update"] > 0 and launches["keyword_match"] > 0,
           f"pubsub: launches {launches}")
     pts_d, pm_d, rects_d, sm_d = _on(torch, device, pts, pm, rects, sm)
-    torch.backends.cuda.matmul.allow_tf32 = True
-    counts_error(torch, _on(torch, device, pc, qc),
-                 kern["keyword_match"].keyword_match_ref(pts_d, pm_d,
-                                                         rects_d, sm_d),
-                 "pubsub: K3")
+    with tf32(torch, True):
+        counts_error(torch, _on(torch, device, pc, qc),
+                     kern["keyword_match"].keyword_match_ref(pts_d, pm_d,
+                                                             rects_d, sm_d),
+                     "pubsub: K3")
     spatial = kern["spatial_match"].spatial_match(pts_d, rects_d)[0]
     check(bool((torch.from_numpy(pc).to(device) <= spatial).all()),
           "pubsub: K3 delivered more than K2 matched")
@@ -680,31 +734,34 @@ def phase_parity(T, np, plane) -> None:
 def phase_tf32(torch, T, np, plane) -> None:
     """One fused window whose busiest cells get more than 2048 tuples,
     with TF32 enabled for every float32 matmul in the process."""
-    torch.backends.cuda.matmul.allow_tf32 = True
-    g, m, w, b = 64, 8, 2, 6000
-    rng = np.random.default_rng(5)
-    xy = rng.uniform(0, 1, (w, b, 2)).astype(np.float32)
-    xy[:, :2500] = rng.uniform(0.5, 0.5 + 0.9 / g, (w, 2500, 2))
-    xy[:, 2500:5000] = rng.uniform(0.1, 0.1 + 0.9 / g, (w, 2500, 2))
-    router = T.SwarmRouter(g, m, beta=4)
-    host = router.fused_host_state()
-    cp = router._cost_params()
-    fp = T.FusedParams(cap_units=1e12, lambda_max=float(b), bp_high=2.0,
-                       bp_dec=0.6, bp_inc=0.04, alive=np.ones(m),
-                       track_stats=True, n_alloc=host.n_alloc)
-    banks = {}
-    for name, pl in (("torch", plane), ("numpy", T.get_plane("numpy"))):
-        carry = T.EngineCarry(np.zeros(m), np.zeros(m), float(b))
-        st, _, _, ok = pl.run_window(pl.make_state(host), cp, fp, carry, xy)
-        check(ok, "F2 window declined")
-        banks[name] = pl.collector_banks(st)
-    for a, c in zip(banks["torch"], banks["numpy"]):
-        check(np.array_equal(a, c), "F2: collector banks differ with TF32")
-    from repro_torch.core.geometry import points_to_cells
-    row, col = points_to_cells(xy[0], g)
-    emit({"phase": "f2", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "max_cell_count": int(np.bincount(row * g + col).max()),
-          "collectors_equal": True})
+    with tf32(torch, True):
+        g, m, w, b = 64, 8, 2, 6000
+        rng = np.random.default_rng(5)
+        xy = rng.uniform(0, 1, (w, b, 2)).astype(np.float32)
+        xy[:, :2500] = rng.uniform(0.5, 0.5 + 0.9 / g, (w, 2500, 2))
+        xy[:, 2500:5000] = rng.uniform(0.1, 0.1 + 0.9 / g, (w, 2500, 2))
+        router = T.SwarmRouter(g, m, beta=4)
+        host = router.fused_host_state()
+        cp = router._cost_params()
+        fp = T.FusedParams(cap_units=1e12, lambda_max=float(b), bp_high=2.0,
+                           bp_dec=0.6, bp_inc=0.04, alive=np.ones(m),
+                           track_stats=True, n_alloc=host.n_alloc)
+        banks = {}
+        for name, pl in (("torch", plane), ("numpy", T.get_plane("numpy"))):
+            carry = T.EngineCarry(np.zeros(m), np.zeros(m), float(b))
+            st, _, _, ok = pl.run_window(pl.make_state(host), cp, fp,
+                                         carry, xy)
+            check(ok, "F2 window declined")
+            banks[name] = pl.collector_banks(st)
+        for a, c in zip(banks["torch"], banks["numpy"]):
+            check(np.array_equal(a, c),
+                  "F2: collector banks differ with TF32")
+        from repro_torch.core.geometry import points_to_cells
+        row, col = points_to_cells(xy[0], g)
+        emit({"phase": "f2",
+              "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+              "max_cell_count": int(np.bincount(row * g + col).max()),
+              "collectors_equal": True})
 
 
 def _main_engine(T, plane, telemetry=None):
@@ -835,6 +892,475 @@ def phase_profile(torch, T, np, main) -> None:
                              sorted(evs, key=dev, reverse=True)[:8]]})
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path: kernels K5 and K6, qwen2-moe-a2.7b served
+# ---------------------------------------------------------------------------
+
+def k5_cost(n: int, e: int) -> dict:
+    """K5's least time: ids and gates (n assignments, 4 bytes each) read
+    once, the two (E,) float32 outputs written once; one add to a count
+    and one to a load per assignment."""
+    nbytes = n * 8 + 2 * e * 4
+    ops = 2 * n
+    bound_ms, bound_by = roofline(nbytes, ops)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "peak_ops_per_s": FP32_OPS_PER_S}
+
+
+def k5_row(torch, MH, idx, gates, e: int) -> dict:
+    """K5 against its plain version on card tensors: counts exact, load
+    within rtol 1e-5 and identical across two launches; times beside
+    ``torch.bincount`` of the counts plus a weighted one of the load (on
+    ids shifted by one, so that −1 falls into a bin of its own)."""
+    counts, load = MH.moe_histogram(idx, gates, num_experts=e)
+    again = MH.moe_histogram(idx, gates, num_experts=e)
+    want_c, want_l = MH.moe_histogram_ref(idx, gates, e)
+    torch.cuda.synchronize()
+    check(torch.equal(counts, want_c), "K5: counts differ from the plain "
+          "version")
+    torch.testing.assert_close(load, want_l, rtol=1e-5, atol=1e-5)
+    check(torch.equal(counts, again[0]) and torch.equal(load, again[1]),
+          "K5: two launches on the same input differ")
+    shifted = (idx.reshape(-1) + 1).long()
+    flat_g = gates.reshape(-1)
+
+    def library():
+        torch.bincount(shifted, minlength=e + 1)
+        torch.bincount(shifted, weights=flat_g, minlength=e + 1)
+
+    return {"max_abs_err": float((counts - want_c).abs().max()),
+            "load_max_rel_err": float(((load - want_l).abs()
+                                       / want_l.abs().clamp_min(1e-30))
+                                      .max()),
+            "ms": time_call_ms(torch, lambda: MH.moe_histogram(
+                idx, gates, num_experts=e)),
+            "plain_ms": time_call_ms(
+                torch, lambda: MH.moe_histogram_ref(idx, gates, e)),
+            "library_ms": time_call_ms(torch, library),
+            **k5_cost(idx.numel(), e)}
+
+
+def phase_k5(torch, np, MH, device) -> float:
+    """K5 at (T, K, E) in K5_SHAPES, a tenth of the ids −1 (padding)."""
+    worst = 0.0
+    for t, k, e in K5_SHAPES:
+        rng = np.random.default_rng(t + k + e)
+        idx = rng.integers(0, e, (t, k)).astype(np.int32)
+        idx[rng.random((t, k)) < 0.1] = -1
+        gates = rng.uniform(0, 1, (t, k)).astype(np.float32)
+        idx_d, gates_d = _on(torch, device, idx, gates)
+        row = k5_row(torch, MH, idx_d, gates_d, e)
+        worst = max(worst, row["max_abs_err"])
+        emit({"phase": "k5", "t": t, "k": k, "e": e, **row})
+    return worst
+
+
+def visible_keys(s: int, skv: int, causal: bool, window, q_offset: int):
+    """Keys the query rows may see, summed over the rows, and the key
+    range [lo, hi) they see together."""
+    seen, lo, hi = 0, skv, 0
+    for i in range(s):
+        r = i + q_offset
+        a = max(0, r - window + 1) if window else 0
+        b = min(skv, r + 1) if causal else skv
+        if b > a:
+            seen, lo, hi = seen + b - a, min(lo, a), max(hi, b)
+    return seen, min(lo, hi), hi
+
+
+def k6_cost(q, k, causal, window, q_offset) -> dict:
+    """K6's least time: q read and o written once, and of k and v the
+    rows some query may see, each once; 4·D operations per visible
+    (query, key) pair (Q·Kᵀ and P·V), against the bf16 tensor-core peak
+    for bf16 inputs and the float32 peak for float32 inputs."""
+    b, h, s, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    seen, lo, hi = visible_keys(s, skv, causal, window, q_offset)
+    elem = q.element_size()
+    nbytes = elem * (2 * b * h * s * d + 2 * b * hkv * (hi - lo) * d)
+    ops = 4 * d * b * h * seen
+    peak = BF16_OPS_PER_S if elem == 2 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "peak_ops_per_s": peak,
+            "visible_pairs": seen * b * h}
+
+
+def _sdpa_call(torch, q, k, v, causal, window, q_offset):
+    """One ``scaled_dot_product_attention`` call computing what K6 does
+    on these inputs (a timing yardstick only): on the keys the rows can
+    see, ``is_causal`` where that is the mask, else a boolean mask; GQA
+    by ``enable_gqa``."""
+    import torch.nn.functional as F
+    s, skv = q.shape[2], k.shape[2]
+    _, lo, hi = visible_keys(s, skv, causal, window, q_offset)
+    kk, vv = k[:, :, lo:hi], v[:, :, lo:hi]
+    gqa = q.shape[1] != k.shape[1]
+    if s == 1 or (causal and not window and q_offset == 0 and hi == s):
+        return lambda: F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=s > 1, enable_gqa=gqa)
+    rows = torch.arange(s, device=q.device)[:, None] + q_offset
+    cols = torch.arange(lo, hi, device=q.device)[None, :]
+    mask = torch.ones((s, hi - lo), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window:
+        mask &= cols > rows - window
+    return lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask,
+                                                  enable_gqa=gqa)
+
+
+# K6's tolerances: the JAX package's (tests/test_kernels.py), float32
+# atol 2e-5 and bfloat16 atol 3e-2, and for bfloat16 outputs also one
+# that scales with the output (k6_check)
+K6_F32_TOL, K6_BF16_TOL = 2e-5, 3e-2
+
+
+def k6_check(torch, got, want, what: str) -> dict:
+    """K6's output against its plain version's.  float32: within
+    K6_F32_TOL everywhere.  bfloat16: within K6_BF16_TOL, and each
+    element within two bfloat16 steps at its plain value plus
+    K6_F32_TOL: the two compute in float32 and each round once to
+    bfloat16, so they may differ by a step where their float32 sums
+    round apart.  That bound shrinks with the output, so a kernel that
+    dropped keys fails even where the outputs are far below 3e-2.  The
+    error relative to the plain output's RMS is reported beside it."""
+    w = want.float()
+    diff = (got.float() - w).abs()
+    err = float(diff.max())
+    rms = float(w.square().mean().sqrt())
+    out = {"max_abs_err": err, "rms_want": rms,
+           "max_err_over_rms": err / max(rms, 1e-30)}
+    finite = bool(torch.isfinite(got).all())
+    if got.dtype == torch.float32:
+        out["tol"] = K6_F32_TOL
+        check(err <= K6_F32_TOL and finite,
+              f"{what}: error {err} above {K6_F32_TOL}")
+        return out
+    _, e = torch.frexp(w)                 # |w| = m·2**e, m in [0.5, 1)
+    step = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), e - 8))
+    worst = float((diff / (2 * step + K6_F32_TOL)).max())
+    out.update(tol=K6_BF16_TOL, elementwise_tol="2 bf16 steps + 2e-5",
+               elementwise_worst=worst)
+    check(err <= K6_BF16_TOL and worst <= 1.0 and finite,
+          f"{what}: error {err} (above {K6_BF16_TOL}) or {worst} of the "
+          f"per-element bound")
+    return out
+
+
+def k6_row(torch, FA, q, k, v, causal=True, window=None, q_offset=0,
+           timed=True) -> dict:
+    """K6 against its plain version on card tensors (:func:`k6_check`),
+    the plain version's float32 products in full float32 (TF32 off);
+    if ``timed``, times beside one ``scaled_dot_product_attention``
+    call."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    with tf32(torch, False):              # a float32 reference
+        got = FA.flash_attention(q, k, v, **kw)
+        want = FA.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        out = k6_check(torch, got, want, f"K6 at {tuple(q.shape)} "
+                       f"{q.dtype} window {window} offset {q_offset}")
+        del got, want
+        if not timed:
+            return out
+        return {**out,
+                "ms": time_call_ms(
+                    torch, lambda: FA.flash_attention(q, k, v, **kw)),
+                "plain_ms": time_call_ms(
+                    torch, lambda: FA.attention_ref(q, k, v, **kw)),
+                "library_ms": time_call_ms(
+                    torch, _sdpa_call(torch, q, k, v, causal, window,
+                                      q_offset)),
+                **k6_cost(q, k, causal, window, q_offset)}
+
+
+def phase_k6(torch, FA, device) -> float:
+    """K6 at the cases of K6_CASES: qwen2-moe's prefill and decode (at
+    the cache's end and mid-cache), h2o-danube's GQA sliding window at
+    D = 80, gemma's D = 256, in bfloat16 and again in float32."""
+    worst = 0.0
+    gen = torch.Generator(device=device).manual_seed(6)
+    for name, b, h, hkv, s, skv, d, dt, window, off in K6_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   .to(dtype) for shape in ((b, h, s, d), (b, hkv, skv, d),
+                                            (b, hkv, skv, d)))
+        row = k6_row(torch, FA, q, k, v, True, window, off)
+        worst = max(worst, row["max_abs_err"])
+        emit({"phase": "k6", "case": name, "shape": [b, h, hkv, s, skv, d],
+              "dtype": dt, "window": window, "q_offset": off, **row})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return worst
+
+
+class _Recorder:
+    """Keeps the arguments of the last call of ``fn`` under the key
+    ``want`` gives it ("prefill" or "decode": the serve path's last
+    inputs of a kernel), and passes every call on to ``fn``."""
+
+    def __init__(self, fn, want):
+        self.fn, self.want, self.calls, self.last = fn, want, {}, None
+
+    def __call__(self, *args, **kw):
+        self.last = self.want(*args, **kw)
+        self.calls[self.last] = (args, kw)
+        return self.fn(*args, **kw)
+
+
+def phase_serve(torch, kern, LS, L, MOE, device) -> dict:
+    """The port's serving entry point, ``launch.serve.serve``, on
+    qwen2-moe-a2.7b at full width and depth (PERF.md §4): LM_SESSIONS
+    sessions routed over LM_REPLICAS replicas, replica 0's batch
+    prefilled at LM_PROMPT tokens and decoded for LM_STEPS tokens.  K5
+    and K6 must launch once per layer per prefill or decode call, and
+    every logit must be finite.  The kernels' last prefill and decode
+    inputs are kept for the kernels line.  TF32 is off, as a user's
+    process has it by default, so the MoE router's product is float32 as
+    the config states."""
+    fa = _Recorder(L.flash_attention,
+                   lambda q, *a, **kw: "decode" if q.shape[2] == 1
+                   else "prefill")
+    mh = _Recorder(MOE.moe_histogram,        # the layer's attention call
+                   lambda *a, **kw: fa.last)
+    logs = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L.flash_attention, MOE.moe_histogram = fa, mh
+    try:
+        with tf32(torch, False):              # the router's float32 product
+            reset_launches(kern)              # counts from here …
+            out = LS.serve(LM_ARCH, sessions=LM_SESSIONS,
+                           prompt_len=LM_PROMPT, steps=LM_STEPS,
+                           replicas=LM_REPLICAS, device=device,
+                           log=logs.append)
+            launches = read_launches(kern)    # … to here
+    finally:
+        L.flash_attention, MOE.moe_histogram = fa.fn, mh.fn
+    peak = torch.cuda.max_memory_allocated()
+    layers = out["layers"]
+    calls = 1 + out["decode_calls"]
+    check(out["d_model"] == 2048 and layers == 24,
+          "serve: not qwen2-moe-a2.7b at full width and depth")
+    check(launches["moe_histogram"] == layers * calls
+          and launches["flash_attention"] == layers * calls,
+          f"serve: launches {launches}, {layers} K5 and {layers} K6 per "
+          f"call expected over {calls} calls")
+    check(all(launches[n] == 0 for n in ("stats_update", "spatial_match",
+                                         "keyword_match", "knn_match")),
+          f"serve: launches {launches}")
+    check(out["logits_finite"], "serve: a logit is not finite")
+    check(out["tokens"].shape == (out["batch"], LM_STEPS),
+          "serve: token shape")
+    counts = out["expert_counts"]
+    k = 4                                         # qwen2-moe top-k
+    check(counts[0].sum() == out["batch"] * LM_PROMPT * k * layers
+          and (counts[1:].sum(1) == out["batch"] * k * layers).all(),
+          "serve: expert counts do not add up to the assignments")
+    prefill_tokens = out["batch"] * LM_PROMPT
+    emit({"phase": "serve", "arch": LM_ARCH, "model": out["model"],
+          "layers": layers, "d_model": out["d_model"], "experts": 60,
+          "sessions": LM_SESSIONS, "replicas": LM_REPLICAS,
+          "initial_spread": out["initial_spread"], "batch": out["batch"],
+          "prompt_len": LM_PROMPT, "steps": LM_STEPS,
+          "max_seq": out["max_seq"], "init_s": out["init_s"],
+          "prefill_s": out["prefill_s"],
+          "prefill_tokens_per_s": prefill_tokens / out["prefill_s"],
+          "decode_s": out["decode_s"], "decode_calls": out["decode_calls"],
+          "decode_tokens": out["decode_tokens"],
+          "decode_tok_per_s": out["decode_tok_per_s"],
+          "decode_ms_per_call": out["decode_s"] / out["decode_calls"] * 1e3,
+          "max_memory_allocated": peak, "launches": launches,
+          "replica_load_cv": out["replica_load_cv"],
+          "rebalances": out["rebalances"], "ep_moves": out["ep_moves"],
+          "ep_imbalance": out["ep_imbalance"],
+          "logits_finite": out["logits_finite"], "log": logs})
+    return {"launches": launches, "fa": fa.calls, "mh": mh.calls,
+            "batch": out["batch"]}
+
+
+def _breakdown(prof, wall: float, calls: int) -> dict:
+    """Device seconds of a profiled window by kind: kernels K6 and K5 by
+    name, the expert FFNs as ``aten::bmm`` and every other product as
+    ``aten::mm`` (the device time of the kernels each launched), the
+    rest by kernel; the idle share against the host wall."""
+    from torch.autograd import DeviceType
+    evs = prof.key_averages()
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    t = lambda e: e.self_device_time_total  # noqa: E731
+    busy = sum(map(t, dev)) / 1e6
+    check(busy > 0, "serve_profile: no device time recorded")
+
+    def kern(*subs):
+        return sum(t(e) for e in dev if any(x in e.key for x in subs)) / 1e6
+
+    ops = {e.key: e.device_time_total / 1e6 for e in evs
+           if e.device_type == DeviceType.CPU}
+    return {"calls": calls, "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "k6_s": kern("flash_tile", "flash_row"),
+            "k5_s": kern("moe_histogram"),
+            "expert_bmm_s": ops.get("aten::bmm", 0.0),
+            "other_mm_s": ops.get("aten::mm", 0.0),
+            "top_device_ops": [[e.key[:96], t(e) / 1e3, e.count] for e in
+                               sorted(dev, key=t, reverse=True)[:10]]}
+
+
+def phase_serve_profile(torch, M, configs, batch: int, device) -> dict:
+    """Where the serve path's device time goes: the model of phase serve
+    (qwen2-moe-a2.7b, full width and depth, replica 0's batch, prompt
+    LM_PROMPT) rebuilt and run under ``torch.profiler`` — one prefill,
+    then four decode calls after a warm one — as phase ``profile`` does
+    for the main path."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "serve_profile: TF32 left on by an earlier phase")
+    cfg = configs.get_config(LM_ARCH)
+    params = M.init_params(cfg, 1, device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (batch, LM_PROMPT),
+                         generator=gen, device=device, dtype=torch.int32)
+    out = {"phase": "serve_profile", "batch": batch,
+           "prompt_len": LM_PROMPT}
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, _ = M.prefill(params, cfg, token_ids=toks,
+                                     max_seq=LM_PROMPT + LM_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["prefill"] = _breakdown(prof, wall, 1)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    logits, cache, _ = M.decode_step(params, cfg, cache, tok)
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            logits, cache, _ = M.decode_step(params, cfg, cache, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["decode"] = _breakdown(prof, wall, 4)
+    emit(out)
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bfloat16 numbers at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126))) - 7)
+
+
+def phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs,
+                      device) -> dict:
+    """qwen2-moe-a2.7b at full width, two layers, on the card.  The
+    kernel path (K5 and K6 swapped in by ``models``: each launches twice
+    per prefill or decode call, counted) against the plain path (their
+    plain versions swapped in: no launch) on the same weights and tokens.
+    (1) bfloat16, a prefill and three decode steps: within 4 bfloat16
+    steps at the largest logit (K6 and its plain version each round an
+    output once, so a hidden state may differ by a step here and there).
+    (2) float32, a prefill and four decode steps: within 1e-4, the
+    float32 parity tolerance of tests/test_torch_models.py, and the last
+    decode step's logits against a full ``forward`` over the same tokens
+    (KV-cache consistency) within the reference's 2e-2
+    (tests/test_models.py); capacity factor raised to 15 so that no
+    token is dropped (top-4 of 60 experts)."""
+    import dataclasses
+    full = configs.get_config(LM_ARCH)
+    out = {"phase": "serve_check", "layers": 2, "d_model": full.d_model}
+    plain = {"attention": lambda q, k, v, **kw: FA.attention_ref(q, k, v,
+                                                                 **kw),
+             "histogram": lambda idx, gates, *, num_experts:
+                 MH.moe_histogram_ref(idx, gates, num_experts)}
+
+    def run(cfg, params, toks, steps, plain_path):
+        """Prefill on the first CHECK_PROMPT tokens, then decode the
+        next ``steps`` of ``toks`` (teacher-forced); checks the launch
+        counts of the path."""
+        saved = L.flash_attention, MOE.moe_histogram
+        if plain_path:
+            L.flash_attention = plain["attention"]
+            MOE.moe_histogram = plain["histogram"]
+        try:
+            reset_launches(kern)
+            logits, cache, aux = M.prefill(
+                params, cfg, token_ids=toks[:, :CHECK_PROMPT],
+                max_seq=CHECK_PROMPT + steps)
+            outs, counts = [logits], [aux["expert_counts"]]
+            for t in range(steps):
+                logits, cache, aux = M.decode_step(
+                    params, cfg, cache,
+                    toks[:, CHECK_PROMPT + t:CHECK_PROMPT + t + 1])
+                outs.append(logits)
+                counts.append(aux["expert_counts"])
+            launches = read_launches(kern)
+        finally:
+            L.flash_attention, MOE.moe_histogram = saved
+        n = 0 if plain_path else cfg.num_layers * (1 + steps)
+        check(launches["moe_histogram"] == n
+              and launches["flash_attention"] == n,
+              f"serve_check: launches {launches} on the "
+              f"{'plain' if plain_path else 'kernel'} path, {n} each "
+              f"expected")
+        return outs, counts
+
+    def compare(cfg, params, steps):
+        kern_out, kern_counts = run(cfg, params, toks, steps, False)
+        plain_out, plain_counts = run(cfg, params, toks, steps, True)
+        check(all(bool(torch.isfinite(a).all()) for a in kern_out),
+              "serve_check: a logit is not finite")
+        largest = max(float(p.float().abs().max()) for p in plain_out)
+        errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(kern_out, plain_out)]
+        return kern_out, {
+            "batch": CHECK_BATCH, "prompt": CHECK_PROMPT,
+            "decode_steps": steps, "max_abs_logit": largest,
+            "max_abs_err_per_call": errs,
+            "expert_counts_equal": all(
+                torch.equal(a, b) for a, b in zip(kern_counts, plain_counts))}
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    toks = torch.randint(0, full.vocab_size, (CHECK_BATCH, CHECK_PROMPT + 4),
+                         generator=gen, device=device, dtype=torch.int32)
+    with tf32(torch, False):                  # float32 in float32
+        cfg = dataclasses.replace(full, num_layers=2)
+        params = M.init_params(cfg, 3, device=device)
+        _, res = compare(cfg, params, 3)
+        res["tol"] = 4 * bf16_step(res["max_abs_logit"])
+        check(max(res["max_abs_err_per_call"]) <= res["tol"],
+              f"serve_check: kernel path vs plain path "
+              f"{max(res['max_abs_err_per_call'])} above {res['tol']} "
+              f"(bf16)")
+        out["bf16"] = res
+        del params
+        torch.cuda.empty_cache()
+
+        cfg = dataclasses.replace(
+            full, num_layers=2, dtype="float32",
+            moe=dataclasses.replace(full.moe, capacity_factor=15.0))
+        params = M.init_params(cfg, 4, device=device)
+        kern_out, res = compare(cfg, params, 4)
+        res["tol"] = 1e-4
+        check(max(res["max_abs_err_per_call"]) <= res["tol"],
+              f"serve_check: kernel path vs plain path "
+              f"{max(res['max_abs_err_per_call'])} above 1e-4 (float32)")
+        fwd, _ = M.forward(params, cfg, token_ids=toks)
+        err = float((kern_out[-1][:, 0] - fwd[:, -1]).abs().max())
+        check(err < 2e-2, f"serve_check: decode vs forward {err} (float32)")
+        out["float32"] = {**res, "decode_vs_forward_max_abs_err": err,
+                          "decode_vs_forward_tol": 2e-2,
+                          "capacity_factor": 15.0}
+    emit(out)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -856,8 +1382,15 @@ def main() -> int:
     from repro_torch.kernels import knn_match as KN
     from repro_torch.kernels import spatial_match as SM
     from repro_torch.kernels import stats_update as SU
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_histogram as MH
+    from repro_torch import configs
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
     kern = {"stats_update": SU, "spatial_match": SM, "keyword_match": KM,
-            "knn_match": KN}
+            "knn_match": KN, "moe_histogram": MH, "flash_attention": FA}
 
     device = torch.device("cuda")
     smi = nvidia_smi()
@@ -872,6 +1405,8 @@ def main() -> int:
     worst_k2 = phase_k2(torch, T, np, SM, device)
     worst_k3 = phase_k3(torch, T, np, SM, KM, device)
     worst_k4 = phase_k4(torch, T, np, KN, device)
+    worst_k5 = phase_k5(torch, np, MH, device)
+    worst_k6 = phase_k6(torch, FA, device)
     plane = T.TorchPlane("cuda")
     phase_parity(T, np, plane)
     phase_tf32(torch, T, np, plane)
@@ -880,10 +1415,16 @@ def main() -> int:
     phase_profile(torch, T, np, main_out)
     match = phase_match(torch, T, np, kern, plane, device)
     pubsub = phase_pubsub(torch, T, np, kern, plane, "torch", device)
+    serve = phase_serve(torch, kern, LS, L, MOE, device)
+    lm_launches = serve["launches"]
+    phase_serve_profile(torch, M, configs, serve["batch"], device)
+    phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs, device)
 
     # the kernels line: each kernel at the input its path gave it — K1 at
     # the main path's last round-close input, K2 and K4 at phase match's
-    # tick, K3 at phase pubsub's delivery tick
+    # tick, K3 at phase pubsub's delivery tick, K5 and K6 at the serve
+    # path's last prefill call (its decode call in the serve_kernels line,
+    # and K6 at both in float32 too)
     bank6, decay = last["bank6"], last["decay"]
     worst = max(worst, k1_error(torch, SU, bank6, decay))
     times = k1_times(torch, SU, bank6, decay)
@@ -891,6 +1432,24 @@ def main() -> int:
     k3 = k3_row(torch, SM, KM, pubsub["pts"], pubsub["pm"], pubsub["rects"],
                 pubsub["sm"])
     k4 = k4_row(torch, KN, match["pts"], match["foci"], KNN_K)
+    lm = {}
+    for call in ("prefill", "decode"):
+        (idx, gates), kw = serve["mh"][call]
+        (q, k, v), fkw = serve["fa"][call]
+        lm[call] = {
+            "moe_histogram": {"shape": list(idx.shape),
+                              **k5_row(torch, MH, idx, gates,
+                                       kw["num_experts"])},
+            "flash_attention": {"q": list(q.shape), "kv": list(k.shape),
+                                "dtype": str(q.dtype), **fkw,
+                                **k6_row(torch, FA, q, k, v, **fkw)},
+            # the same inputs widened to float32, held at 2e-5
+            "flash_attention_f32": k6_row(
+                torch, FA, *(t.float() for t in (q, k, v)), **fkw,
+                timed=False)}
+    emit({"serve_kernels": lm})
+    del serve
+    torch.cuda.empty_cache()
     emit({"library_ms": {
         "spatial_match": "null: no single PyTorch call computes the "
                          "inclusive containment counts of both sides",
@@ -917,7 +1476,16 @@ def main() -> int:
         row("keyword_match", pubsub["launches"]["keyword_match"],
             max(worst_k3, k3["max_abs_err"]), k3),
         row("knn_match", match["launches"]["knn_match"],
-            max(worst_k4, k4["max_abs_err"]), k4)]})
+            max(worst_k4, k4["max_abs_err"]), k4),
+        row("moe_histogram", lm_launches["moe_histogram"],
+            max(worst_k5, lm["prefill"]["moe_histogram"]["max_abs_err"]),
+            lm["prefill"]["moe_histogram"],
+            lm["prefill"]["moe_histogram"]["library_ms"]),
+        row("flash_attention", lm_launches["flash_attention"],
+            max(worst_k6, lm["prefill"]["flash_attention"]["max_abs_err"],
+                lm["decode"]["flash_attention"]["max_abs_err"]),
+            lm["prefill"]["flash_attention"],
+            lm["prefill"]["flash_attention"]["library_ms"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

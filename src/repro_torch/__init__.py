@@ -1,4 +1,6 @@
-"""SWARM on PyTorch: the streaming main path with a CUDA data plane.
+"""SWARM on PyTorch: the streaming main path with a CUDA data plane, and
+the LM serving path (``models``, ``serve``, ``launch.serve``) whose
+attention and expert histogram run on hand-written CUDA kernels.
 
 The layout and module names follow the JAX package ``repro`` module for
 module (``repro_torch.core.protocol``, ``repro_torch.streaming.planes``,

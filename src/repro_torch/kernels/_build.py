@@ -22,6 +22,9 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # plain PyTorch version it is held against; -Xptxas -v reports each
 # kernel's registers, shared memory and spills into the build log
 FLAGS = ("-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v")
+# for a kernel held to a tolerance rather than bit for bit: multiply-adds
+# contract into FMAs, at twice the rate of a multiply and an add
+FMA_FLAGS = tuple(f for f in FLAGS if f != "--fmad=false")
 
 # kernel name → nvcc's output of its last build in this process
 BUILD_LOG: dict[str, str] = {}
@@ -41,17 +44,18 @@ def nvcc() -> str:
     return path
 
 
-def load(name: str, source: str) -> ctypes.CDLL:
-    """Build ``source`` (once per content) and load the library."""
+def load(name: str, source: str, flags: tuple = FLAGS) -> ctypes.CDLL:
+    """Build ``source`` with nvcc ``flags`` (once per content and flags)
+    and load the library."""
     with open(source, "rb") as f:
         text = f.read()
-    key = hashlib.sha256(text + " ".join(ARCH + FLAGS).encode()
+    key = hashlib.sha256(text + " ".join(ARCH + flags).encode()
                          ).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"{name}-{key}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *ARCH, *FLAGS, "-shared", "-Xcompiler", "-fPIC",
+        cmd = [nvcc(), *ARCH, *flags, "-shared", "-Xcompiler", "-fPIC",
                "-o", tmp, source]
         res = subprocess.run(cmd, capture_output=True, text=True)
         BUILD_LOG[name] = res.stdout + res.stderr

@@ -1,0 +1,238 @@
+"""Shared transformer layers: norms, RoPE, GQA attention, gated MLPs.
+
+The JAX package's ``models/layers.py`` in PyTorch.  Parameters are plain
+dictionaries of tensors; every layer has ``<layer>_spec`` (shapes and
+logical axis names, the single source of truth for init and parameter
+counts) and ``<layer>`` (apply).  The arithmetic follows the reference
+op for op: norms and RoPE in float32, products in the compute type.
+Attention runs on kernel K6 (``kernels/flash_attention``): its CUDA
+kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
+The reference's query-chunked ``_sdpa_chunked`` and ``segmented_scan``
+have no counterpart: chunking is K6's job, and the recurrent mixers
+that need the scan are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+from .config import ModelConfig
+
+# ---------------------------------------------------------------------------
+# Param-spec helpers.  A spec leaf is (shape, logical_axes).
+# ---------------------------------------------------------------------------
+
+
+class P:  # logical axis names
+    VOCAB = "vocab"
+    EMBED = "embed"
+    HEADS = "heads"
+    KV_HEADS = "kv_heads"
+    HEAD_DIM = "head_dim"
+    FF = "ff"
+    EXPERT = "expert"
+    LAYERS = "layers"
+    NONE = None
+
+
+def leaf(shape, axes):
+    assert len(shape) == len(axes), (shape, axes)
+    return {"shape": tuple(int(s) for s in shape), "axes": tuple(axes)}
+
+
+def is_leaf(x):
+    return isinstance(x, dict) and "shape" in x and "axes" in x
+
+
+def spec_items(spec, path=()):
+    """(path, leaf) pairs of a nested spec, in insertion order."""
+    if is_leaf(spec):
+        yield path, spec
+        return
+    for key, sub in spec.items():
+        yield from spec_items(sub, path + (key,))
+
+
+def spec_leaves(spec):
+    return [lf for _, lf in spec_items(spec)]
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_spec(d):
+    return {"scale": leaf((d,), (P.EMBED,))}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, positions):
+    """positions: (...,) int → (cos, sin) each (..., head_dim/2) f32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=positions.device), exps)
+    angles = positions[..., None].float() * freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, Dh); cos/sin: (S, Dh/2) or (B, S, Dh/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    if cos.dim() == 2:   # (S, half) → broadcast over batch and heads
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                # (B, S, half)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.cat([rx1, rx2], -1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attention_spec(cfg: ModelConfig):
+    d, h, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    return {
+        "wq": leaf((d, h, dh), (P.EMBED, P.HEADS, P.HEAD_DIM)),
+        "wk": leaf((d, hkv, dh), (P.EMBED, P.KV_HEADS, P.HEAD_DIM)),
+        "wv": leaf((d, hkv, dh), (P.EMBED, P.KV_HEADS, P.HEAD_DIM)),
+        "wo": leaf((h, dh, d), (P.HEADS, P.HEAD_DIM, P.EMBED)),
+    }
+
+
+def _sdpa(q, k, v, *, causal, window, q_offset):
+    """q (B, S, H, Dh); k, v (B, Hkv, Skv, Dh) → (B, S, H, Dh) on K6.
+    The query is handed over as a (B, H, S, Dh) view and the output comes
+    back in the same strides, so neither side is copied."""
+    o = flash_attention(q.transpose(1, 2), k, v, causal=causal,
+                        window=window, q_offset=q_offset)
+    return o.transpose(1, 2)
+
+
+def _proj(x, w, dtype):
+    """x (B, S, D) @ w (D, ...) → (B, S, ...)."""
+    out = x @ w.to(dtype).reshape(w.shape[0], -1)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def attention(p, x, cfg: ModelConfig, *, positions, kv_cache=None,
+              cache_offset=None):
+    """Returns (out, new_kv).  Without a cache new_kv is the (k, v) of x
+    as (B, Hkv, S, Dh) views; with ``kv_cache = (k_cache, v_cache)``, each
+    (B, Hkv, max_seq, Dh), x's keys and values are written into the cache
+    in place at ``cache_offset`` and the queries attend over the whole
+    cache (the causal mask hides the rows not yet written, and K6 never
+    reads them)."""
+    dtype = x.dtype
+    q = _proj(x, p["wq"], dtype)                 # (B, S, H, Dh)
+    k = _proj(x, p["wk"], dtype)                 # (B, S, Hkv, Dh)
+    v = _proj(x, p["wv"], dtype)
+    if not cfg.encoder_only:
+        cos, sin = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
+                                    positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)  # (B, Hkv, S, Dh)
+    if kv_cache is not None:
+        kc, vc = kv_cache
+        s = k.shape[2]
+        kc[:, :, cache_offset:cache_offset + s] = k
+        vc[:, :, cache_offset:cache_offset + s] = v
+        k_all, v_all, new_kv, q_offset = kc, vc, (kc, vc), cache_offset
+    else:
+        k_all, v_all, new_kv, q_offset = k, v, (k, v), 0
+    o = _sdpa(q, k_all, v_all, causal=not cfg.encoder_only,
+              window=cfg.sliding_window, q_offset=q_offset)
+    wo = p["wo"].to(dtype)
+    out = o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return out, new_kv
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_spec(cfg: ModelConfig, d_ff: int | None = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act in ("silu", "gelu_glu"):
+        return {
+            "w_gate": leaf((d, f), (P.EMBED, P.FF)),
+            "w_up": leaf((d, f), (P.EMBED, P.FF)),
+            "w_down": leaf((f, d), (P.FF, P.EMBED)),
+        }
+    return {  # plain 2-layer MLP (starcoder2)
+        "w_up": leaf((d, f), (P.EMBED, P.FF)),
+        "w_down": leaf((f, d), (P.FF, P.EMBED)),
+    }
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(p, x, cfg: ModelConfig):
+    dtype = x.dtype
+    if "w_gate" in p:
+        g = x @ p["w_gate"].to(dtype)
+        u = x @ p["w_up"].to(dtype)
+        act = F.silu if cfg.act == "silu" else gelu
+        h = act(g) * u
+    else:
+        h = gelu(x @ p["w_up"].to(dtype))
+    return h @ p["w_down"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def embedding_spec(cfg: ModelConfig):
+    spec = {"tok": leaf((cfg.vocab_size, cfg.d_model), (P.VOCAB, P.EMBED))}
+    if cfg.frontend is not None:
+        # modality frontend STUB: linear projection of precomputed
+        # patch/frame embeddings into the backbone width
+        spec["frontend_proj"] = leaf((cfg.d_model, cfg.d_model),
+                                     (P.EMBED, P.EMBED))
+    return spec
+
+
+def embed_tokens(p, token_ids, cfg: ModelConfig):
+    return p["tok"][token_ids.long()].to(compute_dtype(cfg))
+
+
+def embed_frontend(p, feats, cfg: ModelConfig):
+    dt = compute_dtype(cfg)
+    return feats.to(dt) @ p["frontend_proj"].to(dt)
+
+
+def lm_head_spec(cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": leaf((cfg.d_model, cfg.vocab_size), (P.EMBED, P.VOCAB))}
+
+
+def lm_head(params, x, cfg: ModelConfig):
+    w = (params["embed"]["tok"].T if cfg.tie_embeddings
+         else params["lm_head"]["w"])
+    return x @ w.to(x.dtype)

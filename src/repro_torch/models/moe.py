@@ -1,0 +1,115 @@
+"""Mixture-of-Experts layer with SWARM-driven expert placement.
+
+The JAX package's ``models/moe.py`` in PyTorch.  Dispatch is sort-based
+*within each batch row*: a row's top-k slots are sorted by expert id
+(stably), packed into a capacity-bounded buffer, run through the expert
+FFNs as one batched product per weight, and scattered back
+gate-weighted; slots over capacity are dropped, the reference's drop
+rule ``pos >= capacity`` included.  The buffer is laid out (E, B, C, D)
+rather than the reference's (B, E, C, D), so that each expert's rows are
+one contiguous (B·C, D) block for ``torch.bmm``; the values are the same.
+
+``placement`` is an (E,) permutation, logical expert → physical slot
+(SWARM-EP).  The expert-assignment histogram — SWARM's N′ collector,
+feeding ``distributed/moe_placement.py`` — runs on kernel K5
+(``kernels/moe_histogram``): its CUDA kernel for CUDA tensors, its plain
+PyTorch version for CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.moe_histogram import moe_histogram
+from .config import ModelConfig, MoEConfig
+from .layers import P, leaf
+
+
+def moe_spec(cfg: ModelConfig):
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    spec = {
+        "router": leaf((d, e), (P.EMBED, P.EXPERT)),
+        "w_gate": leaf((e, d, f), (P.EXPERT, P.EMBED, P.FF)),
+        "w_up": leaf((e, d, f), (P.EXPERT, P.EMBED, P.FF)),
+        "w_down": leaf((e, f, d), (P.EXPERT, P.FF, P.EMBED)),
+    }
+    if m.num_shared:
+        fs = m.shared_ff
+        spec["shared"] = {
+            "w_gate": leaf((d, m.num_shared * fs), (P.EMBED, P.FF)),
+            "w_up": leaf((d, m.num_shared * fs), (P.EMBED, P.FF)),
+            "w_down": leaf((m.num_shared * fs, d), (P.FF, P.EMBED)),
+        }
+    return spec
+
+
+def _capacity(m: MoEConfig, seq: int) -> int:
+    cap = int(seq * m.top_k * m.capacity_factor / m.num_experts) + 1
+    return max(8, min(cap, seq * m.top_k))
+
+
+def _dispatch(flat_e, num_experts: int, capacity: int):
+    """flat_e (B, S·K) expert id per slot → (row (B, S·K) of the slot in
+    the (E·B·C) buffer with the reference's ``min(pos, C − 1)`` clamp,
+    keep (B, S·K): the slot's position within its expert is under C)."""
+    b, n = flat_e.shape
+    order = torch.argsort(flat_e, dim=1, stable=True)   # stable by expert
+    sorted_e = torch.gather(flat_e, 1, order)
+    experts = torch.arange(num_experts, device=flat_e.device)
+    starts = torch.searchsorted(sorted_e,
+                                experts.expand(b, -1).contiguous())
+    ranks = torch.arange(n, device=flat_e.device).expand(b, -1)
+    pos_sorted = ranks - torch.gather(starts, 1, sorted_e)
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = pos < capacity
+    batch = torch.arange(b, device=flat_e.device)[:, None]
+    row = (flat_e * b + batch) * capacity + pos.clamp_max(capacity - 1)
+    return row, keep
+
+
+def moe_ffn(p, x, cfg: ModelConfig, placement=None):
+    """x (B, S, D) → (out (B, S, D), aux) — aux carries the router
+    histogram (SWARM collector input, from K5) and the load-balancing
+    loss."""
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.num_experts, m.top_k
+    dtype = x.dtype
+    logits = x.float() @ p["router"].float()              # (B, S, E)
+    probs = torch.softmax(logits, -1)
+    gate, idx = torch.topk(probs, k, dim=-1)              # (B, S, K)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    if placement is not None:  # logical → physical expert slots (SWARM-EP)
+        idx = torch.as_tensor(placement, device=idx.device).long()[idx]
+
+    capacity = _capacity(m, s)
+    flat_e = idx.reshape(b, s * k)
+    row, keep = _dispatch(flat_e, e, capacity)
+    spare = e * b * capacity           # a dropped slot's row, discarded
+    x_slots = x.repeat_interleave(k, dim=1)                 # (B, S·K, D)
+    buf = x.new_zeros(spare + 1, d)
+    buf[torch.where(keep, row, spare).reshape(-1)] = x_slots.reshape(-1, d)
+    expert_in = buf[:spare].view(e, b * capacity, d)
+    g = torch.bmm(expert_in, p["w_gate"].to(dtype))
+    u = torch.bmm(expert_in, p["w_up"].to(dtype))
+    expert_out = torch.bmm(F.silu(g) * u, p["w_down"].to(dtype))
+    slot_out = expert_out.view(-1, d)[row.reshape(-1)].view(b, s * k, d)
+    slot_out = slot_out.masked_fill(~keep[..., None], 0)
+    slot_out = slot_out * gate.to(dtype).reshape(b, s * k, 1)
+    out = slot_out.view(b, s, k, d).sum(2)
+
+    if m.num_shared:
+        sp = p["shared"]
+        gs = x @ sp["w_gate"].to(dtype)
+        us = x @ sp["w_up"].to(dtype)
+        out = out + (F.silu(gs) * us) @ sp["w_down"].to(dtype)
+
+    # SWARM collector (router histogram, K5) + Switch-style aux loss
+    counts, _ = moe_histogram(idx.reshape(-1, k).int(),
+                              gate.reshape(-1, k).contiguous(),
+                              num_experts=e)
+    frac_tokens = counts / counts.sum().clamp_min(1.0)
+    frac_probs = probs.mean((0, 1))
+    aux_loss = e * torch.sum(frac_tokens * frac_probs)
+    return out, {"expert_counts": counts, "aux_loss": aux_loss}

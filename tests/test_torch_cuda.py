@@ -1,7 +1,11 @@
 """The PyTorch port on a CUDA card: kernels K1–K4 against their plain
 versions (exact), one K1 launch per round close, exact window counts
 with TF32 enabled (ROADMAP F2), the exact-match API and the main path
-on ``TorchPlane("cuda")`` against the port's own NumPy reference plane.  Every test here needs the card and
+on ``TorchPlane("cuda")`` against the port's own NumPy reference plane;
+kernels K5 and K6 against their plain versions (counts exact, attention
+at the JAX package's tolerances) and the LM serving path through them
+(smoke models against the CPU, qwen2-moe-a2.7b at full width with two
+layers against its plain path).  Every test here needs the card and
 skips without one; the file imports nothing of JAX, so it runs on a
 machine that has only PyTorch:
 
@@ -270,3 +274,230 @@ def test_exact_match_api_on_the_card_matches_the_numpy_plane(cuda_device):
                                   ref.knn_distances(pts, foci, k=8))
     assert (SM.ops.launches, KM.ops.launches, KN.ops.launches) == tuple(
         x + 1 for x in before)
+
+
+# ---------------------------------------------------------------------------
+# K5 moe_histogram and K6 flash_attention against their plain versions
+# ---------------------------------------------------------------------------
+
+def _assignments(seed, t, k, e, device, pad=0.1):
+    """(t, k) expert ids with a share ``pad`` of −1 padding, and gates."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, e, (t, k)).astype(np.int32)
+    idx[rng.random((t, k)) < pad] = -1
+    gates = rng.uniform(0, 1, (t, k)).astype(np.float32)
+    return _dev(device, idx, gates)
+
+
+@pytest.mark.parametrize("t,k,e", [(1, 1, 4), (256, 4, 60), (300, 4, 60),
+                                   (65536, 4, 60), (65536, 6, 64),
+                                   (4097, 2, 300), (5000, 8, 4096)])
+def test_moe_histogram_kernel_equals_plain_version(cuda_device, t, k, e):
+    """Counts exact; load within rtol 1e-5 (another summation order) and
+    identical across two launches."""
+    from repro_torch.kernels import moe_histogram as MH
+    idx, gates = _assignments(t + e, t, k, e, cuda_device)
+    before = MH.ops.launches
+    counts, load = MH.moe_histogram(idx, gates, num_experts=e)
+    again = MH.moe_histogram(idx, gates, num_experts=e)[1]
+    torch.cuda.synchronize()
+    assert MH.ops.launches == before + 2
+    want_c, want_l = MH.moe_histogram_ref(idx, gates, e)
+    assert torch.equal(counts, want_c)
+    assert float(counts.sum()) == int((idx >= 0).sum())
+    torch.testing.assert_close(load, want_l, rtol=1e-5, atol=1e-5)
+    assert torch.equal(load, again)
+
+
+def test_moe_histogram_rejects_too_many_experts_on_the_card(cuda_device):
+    from repro_torch.kernels import moe_histogram as MH
+    idx, gates = _assignments(0, 8, 2, 4, cuda_device)
+    with pytest.raises(ValueError, match="4096 experts"):
+        MH.moe_histogram(idx, gates, num_experts=MH.MAX_EXPERTS + 1)
+
+
+def _qkv(seed, b, h, hkv, s, skv, d, dtype, device):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 1, (b, h, s, d)).astype(np.float32)
+    k = rng.normal(0, 1, (b, hkv, skv, d)).astype(np.float32)
+    v = rng.normal(0, 1, (b, hkv, skv, d)).astype(np.float32)
+    return [t.to(dtype) for t in _dev(device, q, k, v)]
+
+
+# the JAX package's tolerances (tests/test_kernels.py): float32 2e-5,
+# bfloat16 3e-2 (one bfloat16 rounding of an output of order 1)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _within_bf16_steps(got, want):
+    """Each bfloat16 output within two bfloat16 steps at its plain value
+    plus the float32 tolerance: K6 and its plain version both sum in
+    float32 and round once, so a bound that scales with the output
+    holds, and small outputs are held as tightly as large ones."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    step = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), e - 8))
+    return bool(((got.float() - w).abs()
+                 <= 2 * step + ATTN_TOL[torch.float32]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,skv,d,causal,window,q_offset", [
+    (1, 2, 1, 64, 64, 16, True, None, 0),
+    (2, 4, 2, 130, 130, 80, True, None, 0),
+    (1, 8, 2, 256, 256, 128, True, None, 0),
+    (1, 2, 2, 128, 128, 16, True, 16, 0),
+    (1, 2, 2, 128, 128, 128, True, 100, 0),
+    (2, 4, 2, 1, 96, 16, True, None, 95),
+    (3, 16, 16, 1, 1056, 128, True, None, 1055),
+    (3, 16, 16, 1, 1056, 128, True, None, 600),
+    (2, 4, 2, 3, 70, 80, True, 20, 60),
+    (2, 4, 2, 5, 70, 80, True, None, 60),
+    (1, 4, 4, 200, 300, 256, True, None, 100),
+    (2, 6, 2, 40, 40, 16, True, None, 0),
+    (2, 4, 4, 77, 77, 80, False, None, 0),
+    (1, 4, 1, 1, 50, 128, False, None, 0),
+])
+def test_flash_attention_kernel_equals_plain_version(
+        cuda_device, dtype, b, h, hkv, s, skv, d, causal, window, q_offset):
+    from repro_torch.kernels import flash_attention as FA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(s + skv + d, b, h, hkv, s, skv, d, dtype, cuda_device)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = FA.ops.launches
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = FA.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert _within_bf16_steps(got, want)
+
+
+def test_flash_attention_reads_strided_views_in_place(cuda_device):
+    """A (B, S, H, D) projection seen as (B, H, S, D) and the first Skv
+    rows of a longer cache give what their contiguous copies give."""
+    from repro_torch.kernels import flash_attention as FA
+    b, s, h, d, cap = 2, 70, 4, 128, 160
+    q, _, _ = _qkv(1, b, s, h, h, 1, d, torch.bfloat16, cuda_device)
+    kc, vc = _qkv(2, b, h, h, 1, cap, d, torch.bfloat16, cuda_device)[1:]
+    qv = q.transpose(1, 2)
+    for skv, s_q, off in ((s, s, 0), (100, 1, 99)):
+        args = (qv[:, :, :s_q], kc[:, :, :skv], vc[:, :, :skv])
+        got = FA.flash_attention(*args, q_offset=off)
+        want = FA.flash_attention(*(t.contiguous() for t in args),
+                                  q_offset=off)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [12, 32])
+def test_flash_attention_rejects_an_unbuilt_head_dim(cuda_device, d):
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(0, 1, 2, 2, 8, 8, d, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match=f"head dim {d}"):
+        FA.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path on the card
+# ---------------------------------------------------------------------------
+
+def _to(params, device):
+    if isinstance(params, dict):
+        return {k: _to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_to(v, device) for v in params]
+    return params.to(device)
+
+
+# starcoder2's smoke config has head dim 12, for which K6 is not built
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "h2o_danube_1_8b",
+                                  "gemma_7b", "qwen2_moe_a2_7b",
+                                  "deepseek_moe_16b"])
+def test_smoke_model_on_the_card_matches_the_cpu_in_float32(cuda_device,
+                                                              arch):
+    """Prefill and two decode steps through K5 and K6 on the card give
+    the CPU's logits (the plain versions) on the same weights, within
+    the float32 parity tolerance of tests/test_torch_models.py."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_histogram as MH
+    from repro_torch.models import decode_step, init_params, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32")
+    cpu = init_params(cfg, 0, device="cpu")
+    card = _to(cpu, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32))
+    before = (FA.ops.launches, MH.ops.launches)
+    outs = []
+    for params, dev in ((cpu, "cpu"), (card, cuda_device)):
+        logits, cache, _ = prefill(params, cfg, token_ids=toks[:, :18].to(dev),
+                                   max_seq=20)
+        got = [logits]
+        for t in (18, 19):
+            logits, cache, _ = decode_step(params, cfg, cache,
+                                           toks[:, t:t + 1].to(dev))
+            got.append(logits)
+        outs.append(got)
+    torch.cuda.synchronize()
+    n_moe = cfg.num_layers if cfg.moe else 0
+    assert (FA.ops.launches, MH.ops.launches) == (
+        before[0] + 3 * cfg.num_layers, before[1] + 3 * n_moe)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
+
+
+def test_two_layer_full_width_prefill_and_decode_on_the_card(cuda_device):
+    """qwen2-moe-a2.7b at full width, two layers, bfloat16: one K5 and
+    one K6 launch per layer and call, finite logits, and the kernel path
+    within 4 bfloat16 steps (at the largest logit) of the plain path on
+    the same weights and tokens."""
+    import dataclasses
+    import math
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_histogram as MH
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    cfg = dataclasses.replace(configs.get_config("qwen2_moe_a2_7b"),
+                              num_layers=2)
+    params = init_params(cfg, 0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 66), dtype=torch.int32,
+                         device=cuda_device)
+
+    def run():
+        logits, cache, _ = prefill(params, cfg, token_ids=toks[:, :64],
+                                   max_seq=66)
+        outs = [logits]
+        for t in (64, 65):
+            logits, cache, _ = decode_step(params, cfg, cache,
+                                           toks[:, t:t + 1])
+            outs.append(logits)
+        return outs
+
+    before = (FA.ops.launches, MH.ops.launches)
+    kern = run()
+    torch.cuda.synchronize()
+    assert (FA.ops.launches, MH.ops.launches) == (before[0] + 6,
+                                                  before[1] + 6)
+    saved = L.flash_attention, MOE.moe_histogram
+    L.flash_attention = FA.attention_ref
+    MOE.moe_histogram = lambda i, g, *, num_experts: MH.moe_histogram_ref(
+        i, g, num_experts)
+    try:
+        plain = run()
+    finally:
+        L.flash_attention, MOE.moe_histogram = saved
+    largest = max(float(p.float().abs().max()) for p in plain)
+    tol = 4 * 2.0 ** (math.floor(math.log2(largest)) - 7)
+    for a, b in zip(kern, plain):
+        assert a.shape == (2, 1, cfg.vocab_size)
+        assert torch.isfinite(a).all()
+        assert float((a.float() - b.float()).abs().max()) <= tol

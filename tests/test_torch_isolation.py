@@ -19,13 +19,21 @@ REF = os.path.join(SRC, "repro")
 # the host modules the port carries as file-for-file copies
 COPIED = [
     "analysis/sanitizer.py",
+    "configs/__init__.py", "configs/deepseek_moe_16b.py",
+    "configs/gemma_7b.py", "configs/h2o_danube_1_8b.py",
+    "configs/hubert_xlarge.py", "configs/internlm2_1_8b.py",
+    "configs/jamba_v0_1_52b.py", "configs/pixtral_12b.py",
+    "configs/qwen2_moe_a2_7b.py", "configs/starcoder2_7b.py",
+    "configs/xlstm_1_3b.py",
     "core/__init__.py", "core/cost_model.py", "core/global_index.py",
     "core/integrity.py", "core/planner.py", "core/protocol.py",
     "core/statistics.py",
+    "distributed/moe_placement.py",
     "ft/__init__.py", "ft/chaos.py", "ft/coordinator.py", "ft/links.py",
     "ft/straggler.py",
     "queries/__init__.py", "queries/keywords.py", "queries/models.py",
     "queries/store.py",
+    "serve/router.py",
     "streaming/api.py", "streaming/baselines.py", "streaming/fused.py",
     "streaming/sources.py",
     "telemetry/__init__.py", "telemetry/export.py", "telemetry/records.py",
@@ -34,6 +42,7 @@ COPIED = [
 ]
 # files with a counterpart under src/repro that the port rewrites: the
 # modules that reached JAX, the package façades, and the kernel packages
+# (models/convert.py and launch/__init__.py have no counterpart)
 REWRITTEN = [
     "analysis/__init__.py", "core/balancer.py", "core/geometry.py",
     "streaming/__init__.py", "streaming/engine.py",
@@ -46,6 +55,15 @@ REWRITTEN = [
     "kernels/keyword_match/ref.py",
     "kernels/knn_match/__init__.py", "kernels/knn_match/ops.py",
     "kernels/knn_match/ref.py",
+    "kernels/moe_histogram/__init__.py", "kernels/moe_histogram/ops.py",
+    "kernels/moe_histogram/ref.py",
+    "kernels/flash_attention/__init__.py", "kernels/flash_attention/ops.py",
+    "kernels/flash_attention/ref.py",
+    "models/__init__.py", "models/config.py", "models/layers.py",
+    "models/model.py", "models/moe.py",
+    "serve/__init__.py", "serve/engine.py",
+    "distributed/__init__.py",
+    "launch/serve.py",
 ]
 
 
@@ -84,7 +102,8 @@ def test_no_jax_or_repro_imports(rel):
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.streaming, repro_torch.kernels, "
-            "repro_torch.analysis; "
+            "repro_torch.analysis, repro_torch.models, repro_torch.serve, "
+            "repro_torch.distributed, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
