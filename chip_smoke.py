@@ -48,6 +48,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -987,6 +988,37 @@ def k6_cost(q, k, causal, window, q_offset) -> dict:
             "visible_pairs": seen * b * h}
 
 
+def k6_kernel(FA, q) -> tuple[str, int]:
+    """Which of K6's kernels takes q, and the operations it issues per
+    visible pair: the bf16 tensor-core kernel 6·D (P·V runs twice, P as
+    two bf16 terms), the float32 tile and the row kernels 4·D."""
+    d = q.shape[3]
+    if q.shape[2] <= FA.ops.ROW_MAX:
+        return "flash_row", 4 * d
+    return ("flash_mma", 6 * d) if q.element_size() == 2 else ("flash_tile",
+                                                                4 * d)
+
+
+def k6_ptxas(log: str) -> list:
+    """Registers, spills and stack of each K6 kernel from nvcc's
+    ``-Xptxas -v`` output (the build log of this process's build)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("stack_frame", r"(\d+) bytes stack frame")):
+                m = re.search(pat, line)
+                if m:
+                    cur[key] = int(m.group(1))
+    return out
+
+
 def _sdpa_call(torch, q, k, v, causal, window, q_offset):
     """One ``scaled_dot_product_attention`` call computing what K6 does
     on these inputs (a timing yardstick only): on the keys the rows can
@@ -1054,7 +1086,8 @@ def k6_row(torch, FA, q, k, v, causal=True, window=None, q_offset=0,
     """K6 against its plain version on card tensors (:func:`k6_check`),
     the plain version's float32 products in full float32 (TF32 off);
     if ``timed``, times beside one ``scaled_dot_product_attention``
-    call."""
+    call, the rate on the 4·D count (``tflops``) and the operations the
+    kernel issues (``issued_ops``, 6·D a pair on the tensor cores)."""
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     with tf32(torch, False):              # a float32 reference
         got = FA.flash_attention(q, k, v, **kw)
@@ -1065,15 +1098,18 @@ def k6_row(torch, FA, q, k, v, causal=True, window=None, q_offset=0,
         del got, want
         if not timed:
             return out
-        return {**out,
-                "ms": time_call_ms(
-                    torch, lambda: FA.flash_attention(q, k, v, **kw)),
+        ms = time_call_ms(torch, lambda: FA.flash_attention(q, k, v, **kw))
+        cost = k6_cost(q, k, causal, window, q_offset)
+        kernel, per_pair = k6_kernel(FA, q)
+        return {**out, "ms": ms,
                 "plain_ms": time_call_ms(
                     torch, lambda: FA.attention_ref(q, k, v, **kw)),
                 "library_ms": time_call_ms(
                     torch, _sdpa_call(torch, q, k, v, causal, window,
                                       q_offset)),
-                **k6_cost(q, k, causal, window, q_offset)}
+                **cost, "tflops": cost["ops"] / ms / 1e9, "kernel": kernel,
+                "issued_ops": per_pair * cost["visible_pairs"],
+                "issued_tflops": per_pair * cost["visible_pairs"] / ms / 1e9}
 
 
 def phase_k6(torch, FA, device) -> float:
@@ -1200,7 +1236,7 @@ def _breakdown(prof, wall: float, calls: int) -> dict:
            if e.device_type == DeviceType.CPU}
     return {"calls": calls, "wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall,
-            "k6_s": kern("flash_tile", "flash_row"),
+            "k6_s": kern("flash_mma", "flash_tile", "flash_row"),
             "k5_s": kern("moe_histogram"),
             "expert_bmm_s": ops.get("aten::bmm", 0.0),
             "other_mm_s": ops.get("aten::mm", 0.0),
@@ -1401,6 +1437,8 @@ def main() -> int:
     kernels.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc": _build.BUILD_LOG})
+    emit({"phase": "k6_ptxas",
+          "kernels": k6_ptxas(_build.BUILD_LOG.get("flash_attention", ""))})
     worst = phase_kernel(torch, SU, device)
     worst_k2 = phase_k2(torch, T, np, SM, device)
     worst_k3 = phase_k3(torch, T, np, SM, KM, device)

@@ -12,22 +12,45 @@
 // j > i + q_offset − window (sliding window).  A row with no key gets 0,
 // as the reference's max(l, 1e-30) gives.
 //
-// What bounds it on this card: operations for a prefill (S·Skv·D
-// multiply-adds twice over, the causal half skipped), bytes for a decode
-// step (one query row against the whole cache).  The TPU walked the kv
-// blocks as the innermost sequential grid axis and kept the running max,
-// sum and accumulator in VMEM scratch.  Here the kv loop is a loop inside
-// the block, and the state lives in registers:
+// What bounds it on this card: for a bfloat16 prefill, bytes at the
+// serve path's shapes (q, k, v, o once: 0.25 ms at (50, 16, 1024, 128))
+// just above the 4·D operations per visible (query, key) pair on the
+// bf16 tensor cores (0.22 ms; flash_mma issues 6·D, so 0.33 ms is its
+// own floor); for a decode step, bytes (one query row against the whole
+// cache).  The TPU walked the kv blocks as the
+// innermost sequential grid axis and kept the running max, sum and
+// accumulator in VMEM scratch.  Here the kv loop is a loop inside the
+// block, and the state lives in registers.  Tiles wholly beyond the
+// causal or window edge of a block's rows are never loaded, and blocks
+// of the last query rows, which see the most keys, are issued first.
 //
-// - flash_tile (S > kRowMax): one block of 8 warps per (b, h, 64 query
-//   rows), each warp owning 8 rows.  The block stages its query rows
-//   (scaled) and then each kv tile in shared memory as float32; a lane
-//   owns BK/32 keys of the tile for the scores (float4 reads, K rows
-//   padded by 4 floats so the reads are free of bank conflicts) and
-//   D/32 columns of the accumulator; P reaches the P·V product by warp
-//   shuffles.  Tiles wholly beyond the causal or window edge of the
-//   block's rows are never loaded.  Blocks of the last query rows, which
-//   see the most keys, are issued first.
+// - flash_mma (bfloat16, S > kRowMax: prefill): one block of 4 warps per
+//   (b, h, 64 query rows), each warp owning 16 rows.  Both products run
+//   on the bf16 tensor cores (mma.sync m16n8k16, float32 accumulators),
+//   fed by ldmatrix from bf16 tiles in shared memory whose rows are
+//   padded by 16 bytes (conflict-free ldmatrix); Q's fragments are read
+//   from shared memory at each k step.  The Q tile is copied once, K and
+//   V tiles of 32 keys through a two-stage ring, all with cp.async (16
+//   bytes a thread, zero-filled past Skv or S), so tile j+1 is in flight
+//   while tile j is computed.  32-key tiles and Q in shared memory keep
+//   a thread at 128 registers at D = 128 (96 at D = 80) and a block at
+//   52 KB, so four blocks share an SM; at D = 256 (254 registers, 101 KB)
+//   two do.  Scores are scaled in float32 after the product (1/sqrt(D)
+//   does not round to bf16 at D = 80, 128).  The online softmax runs on
+//   the accumulator fragments (a row lives in a quad of lanes: two
+//   shuffles for its max).  P goes from the score accumulators straight
+//   into the A fragments of P·V, as two bf16 terms, hi = bf16(p) and
+//   lo = bf16(p − hi), two MMAs a step: one bf16 rounding of p puts
+//   outputs of rows that see few keys up to ~50× past two bf16 steps of
+//   the plain value, the split keeps them within one.  That costs 6·D
+//   tensor-core operations per pair instead of 4·D.
+// - flash_tile (float32, S > kRowMax): one block of 8 warps per
+//   (b, h, 64 query rows), each warp owning 8 rows, on float32 FMAs.  The
+//   block stages its query rows (scaled) and then each kv tile in shared
+//   memory; a lane owns BK/32 keys of the tile for the scores (float4
+//   reads, K rows padded by 4 floats so the reads are free of bank
+//   conflicts) and D/32 columns of the accumulator; P reaches the P·V
+//   product by warp shuffles.
 // - flash_row (S <= kRowMax, a decode step): one block of 4 warps per
 //   (b, h, row), each warp streaming a quarter of the row's key range
 //   from device memory (lanes split D, so each key row is one coalesced
@@ -37,11 +60,13 @@
 // Numerics: scores, the running max, the row sum and the accumulator are
 // float32; exponentials are expf (not __expf); multiply-adds contract to
 // FMAs (the build drops --fmad=false), so a result is held to a
-// tolerance against the plain version, not bit for bit.  No tensor cores
-// yet.
+// tolerance against the plain version, not bit for bit.  flash_mma needs
+// every row of q, k and v to start on 16 bytes (the wrapper checks).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -49,6 +74,7 @@ constexpr float kNegInf = -1e30f;  // the running max's start, as on the TPU
 constexpr int kWarps = 8;          // flash_tile: warps per block
 constexpr int kRows = 8;           // flash_tile: query rows per warp
 constexpr int kBQ = kWarps * kRows;
+constexpr int kMmaWarps = kBQ / 16;  // flash_mma: warps of 16 rows each
 constexpr int kRowWarps = 4;       // flash_row: warps per block
 constexpr int kRowMax = 4;         // longest S that takes flash_row
 constexpr int kUnroll = 4;         // flash_row: keys per step
@@ -235,6 +261,271 @@ flash_tile(Params p) {
   }
 }
 
+// --- flash_mma: bf16 tensor cores -----------------------------------------
+
+template <int D>
+struct MmaShape {
+  // keys per kv tile and the K/V ring's depth: BK = 64 or three stages
+  // leave fewer blocks an SM, 1.1–1.4× slower at D = 128 and 256
+  // (variants.py)
+  static constexpr int BK = 32;
+  static constexpr int kStages = 2;
+  static constexpr int LD = D + 8;    // shared row in bf16: 16 bytes of pad
+  static constexpr size_t smem =
+      sizeof(__nv_bfloat16) * (kBQ * LD + 2 * kStages * BK * LD);
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global → shared, asynchronously; zero-filled when !full
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c (16×8, float32) += a (16×16, bf16, row) · b (16×8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<unsigned*>(&x);
+}
+
+// (x, y) as two bf16 terms: hi = bf16(x), lo = bf16(x − hi), each packed
+// with x in the low half (the lower column of an A fragment)
+__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4·g + t.  A (16×16)
+// regs {(g, 2t..), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}; B (16×8)
+// regs {(2t.., g), (2t+8.., g)}; C (16×8) {(g, 2t), (g, 2t+1),
+// (g+8, 2t), (g+8, 2t+1)}.  So the C fragments of two neighbouring n8
+// score tiles are the A fragment of one k16 step of P·V.
+template <int D>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+flash_mma(Params p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BK = MmaShape<D>::BK, LD = MmaShape<D>::LD;
+  constexpr int kStages = MmaShape<D>::kStages;
+  constexpr int KS = D / 16;        // k16 steps of Q·Kᵀ
+  constexpr int NT = BK / 8;        // n8 score tiles
+  constexpr int DT = D / 8;         // n8 output tiles
+  constexpr int CH = D / 8;         // 16-byte chunks in a row
+  constexpr int kThreads = kMmaWarps * 32;
+  static_assert(D % 16 == 0 && BK % 16 == 0, "k16 steps");
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);  // kBQ × LD
+  bf16* sK = sQ + kBQ * LD;                   // kStages × BK × LD
+  bf16* sV = sK + kStages * BK * LD;          // kStages × BK × LD
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / p.h, h = blockIdx.x % p.h, hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  const int last = min(q0 + kBQ, p.s) - 1 + p.q_offset;  // absolute
+  const int kv_end = p.causal ? min(p.skv, last + 1) : p.skv;
+  const int kv_begin =
+      p.window > 0 ? max(0, q0 + p.q_offset - p.window + 1) : 0;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BK - 1) / BK
+                                        : 0;
+
+  for (int c = tid; c < kBQ * CH; c += kThreads) {
+    const int r = c / CH, cc = c - r * CH;
+    const bool in = q0 + r < p.s;
+    cp_async16(smem_u32(sQ + r * LD + cc * 8),
+               in ? q + (q0 + r) * p.q_ss + cc * 8 : q, in);
+  }
+  auto load_kv = [&](int tile, int stage) {
+    const int j0 = kv_begin + tile * BK;
+    bf16* dk = sK + stage * BK * LD;
+    bf16* dv = sV + stage * BK * LD;
+    for (int c = tid; c < BK * CH; c += kThreads) {
+      const int r = c / CH, cc = c - r * CH, col = j0 + r;
+      const bool in = col < kv_end;
+      cp_async16(smem_u32(dk + r * LD + cc * 8),
+                 in ? k + col * p.k_ss + cc * 8 : k, in);
+      cp_async16(smem_u32(dv + r * LD + cc * 8),
+                 in ? v + col * p.v_ss + cc * 8 : v, in);
+    }
+  };
+  // the ring's first kStages − 1 tiles; group 0 also holds Q
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_tiles) load_kv(st, st);
+    cp_async_commit();
+  }
+
+  // each lane's row and column in the 8×8 matrices of its ldmatrix.x4
+  const int r0 = warp * 16;                                  // warp's rows
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;      // Q: A
+  const int k_row = (lane & 7) + ((lane >> 4) << 3);         // K: B
+  const int k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3);   // V: B, trans
+  const int v_col = (lane >> 4) * 8;
+  const int ra0 = q0 + r0 + g + p.q_offset;  // absolute row of c0, c1
+
+  float acc[DT][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile % kStages, ahead = tile + kStages - 1;
+    if (ahead < n_tiles) load_kv(ahead, ahead % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();   // tile has landed; later ones may not
+    __syncthreads();
+    const bf16* tK = sK + stage * BK * LD;
+    const bf16* tV = sV + stage * BK * LD;
+
+    // S = Q · Kᵀ for the warp's 16 rows and the tile's BK keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned a[4];
+      ldmatrix_x4(a, smem_u32(sQ + (r0 + a_row) * LD + ks * 16 + a_col));
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        unsigned kb[4];
+        ldmatrix_x4(kb, smem_u32(tK + (j * 8 + k_row) * LD + ks * 16
+                                 + k_col));
+        mma_bf16(s[j], a, kb[0], kb[1]);
+        mma_bf16(s[j + 1], a, kb[2], kb[3]);
+      }
+    }
+
+    // scale in float32; masks where the tile crosses an edge of the
+    // block's rows (a masked score is -inf: its probability is exactly 0)
+    const int j0 = kv_begin + tile * BK;
+    const bool whole = j0 + BK <= kv_end
+                       && (!p.causal || j0 + BK - 1 <= q0 + p.q_offset)
+                       && (p.window <= 0
+                           || j0 > q0 + kBQ - 1 + p.q_offset - p.window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * p.scale;
+        if (!whole) {
+          const int col = j0 + j * 8 + 2 * t + (e & 1);
+          const int ra = ra0 + (e >> 1) * 8;
+          const bool ok = col < kv_end && (!p.causal || col <= ra)
+                          && (p.window <= 0 || col > ra - p.window);
+          x = ok ? x : -INFINITY;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax: rows g (i = 0) and g + 8 (i = 1) of the warp's 16;
+    // l keeps this lane's share of the row sum, folded at the end
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          s[j][e] = expf(s[j][e] - m_new);   // now the probability
+          ps += s[j][e];
+        }
+      l[i] = l[i] * alpha + ps;
+      m[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        acc[d][2 * i] *= alpha;
+        acc[d][2 * i + 1] *= alpha;
+      }
+    }
+
+    // acc += P · V, P as hi + lo bf16 terms
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      unsigned hi[4], lo[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int d = 0; d < DT; d += 2) {
+        unsigned vb[4];
+        ldmatrix_x4_trans(vb, smem_u32(tV + (kk * 16 + v_row) * LD + d * 8
+                                       + v_col));
+        mma_bf16(acc[d], hi, vb[0], vb[1]);
+        mma_bf16(acc[d + 1], hi, vb[2], vb[3]);
+        mma_bf16(acc[d], lo, vb[0], vb[1]);
+        mma_bf16(acc[d + 1], lo, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();                // this stage may be refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(~0u, l[i], 1);
+    l[i] += __shfl_xor_sync(~0u, l[i], 2);
+    const int row = q0 + r0 + g + 8 * i;
+    if (row >= p.s) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    bf16* orow = o + row * p.o_ss + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) =
+          __floats2bfloat162_rn(acc[d][2 * i] / denom,
+                                acc[d][2 * i + 1] / denom);
+  }
+}
+
 template <int D, typename T>
 __global__ void __launch_bounds__(kRowWarps * 32)
 flash_row(Params p) {
@@ -333,6 +624,23 @@ flash_row(Params p) {
   }
 }
 
+// Launch a tile kernel; its shared-memory cap is raised on its first
+// launch (above 48 KB only dynamic shared memory may be used).
+template <void (*Kernel)(Params)>
+int launch_tile(dim3 grid, int threads, size_t smem, const Params& p,
+                cudaStream_t stream) {
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  Kernel<<<grid, threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, typename T>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   if (p.s <= kRowMax) {
@@ -340,18 +648,13 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
         p);
     return static_cast<int>(cudaGetLastError());
   }
-  constexpr size_t smem = TileShape<D>::smem;
-  static bool sized = false;  // raise the block's shared-memory cap once
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_tile<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
-  flash_tile<D, T><<<dim3(batch * p.h, (p.s + kBQ - 1) / kBQ),
-                     kWarps * 32, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(batch * p.h, (p.s + kBQ - 1) / kBQ);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_tile<flash_mma<D>>(grid, kMmaWarps * 32,
+                                     MmaShape<D>::smem, p, stream);
+  else
+    return launch_tile<flash_tile<D, T>>(grid, kWarps * 32,
+                                         TileShape<D>::smem, p, stream);
 }
 
 template <typename T>

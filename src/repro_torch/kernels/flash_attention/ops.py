@@ -12,8 +12,11 @@ first Skv rows of a longer KV cache — and is read in place; the output
 has q's strides.  On a CUDA tensor it launches the hand-written kernel
 in ``flash_attention.cu`` (built with nvcc at first use; D one of
 :data:`HEAD_DIMS`) or raises; on a CPU tensor it runs the plain PyTorch
-version in ``ref.py``.  ``launches`` counts the kernel launches, so a
-run can show it went through the kernel.
+version in ``ref.py``.  bfloat16 inputs with S > :data:`ROW_MAX` go to
+the tensor-core kernel, which copies rows with 16-byte ``cp.async``:
+each row of q, k and v must start on 16 bytes (a misaligned view raises
+``ValueError``; nothing is copied to fix it).  ``launches`` counts the
+kernel launches, so a run can show it went through the kernel.
 """
 import ctypes
 import functools
@@ -25,7 +28,8 @@ import torch
 from .. import _build
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "build", "SOURCE", "HEAD_DIMS", "launches"]
+__all__ = ["flash_attention", "build", "SOURCE", "HEAD_DIMS", "ROW_MAX",
+           "launches"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "flash_attention.cu")
@@ -34,6 +38,7 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # variants' width (starcoder2's smoke has 12 and runs on the CPU only)
 HEAD_DIMS = (16, 80, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROW_MAX = 4    # kRowMax: longest S that takes the row (decode) kernel
 
 launches = 0   # kernel launches since import (or the caller's last reset)
 
@@ -69,6 +74,20 @@ def _check(q, k, v, window):
         raise ValueError(f"window={window}: a sliding window keeps >= 1 key")
 
 
+def _check_aligned(*tensors):
+    """The tensor-core kernel's 16-byte row copies: every row of each
+    tensor starts on 16 bytes (its base, and its batch, head and row
+    strides in multiples of 8 bfloat16 elements where the dimension has
+    more than one index)."""
+    for name, t in zip("qkv", tensors):
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st % 8 for st in strides):
+            raise ValueError(
+                f"{name}: bfloat16 rows must start on 16 bytes for the "
+                f"tensor-core kernel (data_ptr % 16 = {t.data_ptr() % 16}, "
+                f"strides {tuple(t.stride())})")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     q_offset: int = 0) -> torch.Tensor:
@@ -87,6 +106,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {d}: the attention kernel is built for "
                          f"D in {HEAD_DIMS}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and s > ROW_MAX:
+        _check_aligned(q, k, v)
     out = torch.empty_like(q)      # q's strides where q is dense
     if s == 0:
         return out

@@ -357,6 +357,18 @@ def _within_bf16_steps(got, want):
     (2, 6, 2, 40, 40, 16, True, None, 0),
     (2, 4, 4, 77, 77, 80, False, None, 0),
     (1, 4, 1, 1, 50, 128, False, None, 0),
+    # the bf16 tensor-core kernel's edges: S and Skv off the 64-row and
+    # 32-key tiles, S = 5 (the first past the row kernel), GQA group 8, a
+    # window inside one kv tile, non-causal with Skv > S, every D
+    (1, 4, 2, 65, 65, 128, True, None, 0),
+    (1, 4, 4, 127, 127, 256, True, None, 0),
+    (1, 2, 1, 1000, 1000, 16, True, None, 0),
+    (1, 4, 2, 1000, 1000, 80, True, None, 0),
+    (2, 4, 4, 5, 5, 128, True, None, 0),
+    (1, 16, 2, 300, 300, 128, True, None, 0),
+    (1, 8, 1, 200, 200, 80, True, 10, 0),
+    (1, 4, 2, 100, 333, 16, False, None, 0),
+    (1, 4, 2, 65, 1000, 256, True, 7, 900),
 ])
 def test_flash_attention_kernel_equals_plain_version(
         cuda_device, dtype, b, h, hkv, s, skv, d, causal, window, q_offset):
@@ -391,6 +403,32 @@ def test_flash_attention_reads_strided_views_in_place(cuda_device):
                                   q_offset=off)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+def test_flash_attention_rejects_misaligned_bf16_rows(cuda_device):
+    """The tensor-core kernel copies 16-byte row chunks: a bf16 view whose
+    rows do not start on 16 bytes raises (no copy, no other kernel); the
+    same views still run where they take the row kernel (S <= 4)."""
+    from repro_torch.kernels import flash_attention as FA
+    b, h, s, d = 1, 2, 70, 128
+    wide = _qkv(7, b, h, h, s, s, d + 8, torch.bfloat16, cuda_device)
+    q, k, v = (t[..., :d] for t in wide)        # row stride D + 8: aligned
+    FA.flash_attention(q, k, v)
+    shifted = wide[0][..., 1:d + 1]              # rows start 2 bytes in
+    padded = _qkv(8, b, h, h, s, s, d + 4, torch.bfloat16,
+                  cuda_device)[0][..., :d]       # row stride D + 4
+    for bad in (shifted, padded):
+        before = FA.ops.launches
+        with pytest.raises(ValueError, match="16 bytes"):
+            FA.flash_attention(bad, k, v)
+        with pytest.raises(ValueError, match="16 bytes"):
+            FA.flash_attention(q, bad, v)
+        assert FA.ops.launches == before
+        got = FA.flash_attention(bad[:, :, :1], k, v, q_offset=s - 1)
+        want = FA.attention_ref(bad[:, :, :1], k, v, q_offset=s - 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=ATTN_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("d", [12, 32])

@@ -6,7 +6,11 @@ interpret mode and its JAX reference, on the sweeps of
 lengths that are not a block multiple).  Tolerances are the JAX
 package's own: attention float32 atol 2e-5, bfloat16 atol 3e-2; the
 histogram's counts exact, its load rtol 1e-5.  Inputs come from NumPy
-seeds and reach both sides as NumPy arrays."""
+seeds and reach both sides as NumPy arrays.  An emulation of the
+arithmetic of K6's bf16 tensor-core kernel (``flash_mma``) pins why its
+P·V takes P as two bf16 terms."""
+import math
+
 import numpy as np
 import pytest
 
@@ -120,6 +124,152 @@ def test_attention_wrapper_rejects_bad_inputs():
         FA.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="window"):
         FA.flash_attention(q, k, v, window=0)
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic of K6's bf16 tensor-core kernel (flash_mma), emulated
+# ---------------------------------------------------------------------------
+
+MMA_BQ, MMA_BK = 64, 32      # flash_mma's query rows a block, keys a tile
+
+
+def _mma_emulation(q, k, v, *, causal, window, q_offset, two_term=True):
+    """What ``flash_mma`` computes from bf16 q, k, v, in float32 on the
+    CPU: for each block of MMA_BQ query rows, the kv tiles of MMA_BK keys
+    from the first key the block can see to the last; scores as float32
+    products of the bf16 operands, scaled after the product; an online
+    softmax from a running max of -1e30 with masked scores at -inf; P·V
+    with P rounded to bf16 as two terms, hi = bf16(p) and
+    lo = bf16(p - hi) (one term, hi, when not ``two_term``), each product
+    summed in float32; the row sum over the float32 p; the output divided
+    by max(l, 1e-30) and rounded to bf16 once."""
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    skv = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(group, 1)
+    vf = v.float().repeat_interleave(group, 1)
+    out = torch.zeros((b, h, s, d))
+    for q0 in range(0, s, MMA_BQ):
+        qf = q[:, :, q0:q0 + MMA_BQ].float()
+        n = qf.shape[2]
+        rows = torch.arange(q0, q0 + n)[:, None] + q_offset
+        last = q0 + n - 1 + q_offset
+        kv_end = min(skv, last + 1) if causal else skv
+        kv_begin = max(0, q0 + q_offset - window + 1) if window else 0
+        m = torch.full((b, h, n, 1), -1e30)
+        l = torch.zeros((b, h, n, 1))
+        acc = torch.zeros((b, h, n, d))
+        for j0 in range(kv_begin, kv_end, MMA_BK):
+            j1 = min(j0 + MMA_BK, kv_end)
+            cols = torch.arange(j0, j1)[None, :]
+            mask = torch.ones((n, j1 - j0), dtype=torch.bool)
+            if causal:
+                mask &= cols <= rows
+            if window:
+                mask &= cols > rows - window
+            sc = (qf @ kf[:, :, j0:j1].transpose(-1, -2)) * scale
+            sc = sc.masked_fill(~mask, -math.inf)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            hi = p.bfloat16().float()
+            terms = [hi, (p - hi).bfloat16().float()] if two_term else [hi]
+            acc = acc * alpha
+            for term in terms:
+                acc = acc + term @ vf[:, :, j0:j1]
+            m = m_new
+        out[:, :, q0:q0 + n] = acc / l.clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
+def _bf16_step_worst(got, want):
+    """The largest |got − want| over its per-element bound, two bfloat16
+    steps at the want value plus 2e-5 (the card tests' and chip_smoke's
+    bound for K6's bf16 outputs): at most 1 where the bound holds."""
+    w = torch.as_tensor(np.asarray(want, np.float32))
+    _, e = torch.frexp(w)
+    step = torch.where(w == 0, 0.0, torch.ldexp(torch.ones_like(w), e - 8))
+    diff = (torch.as_tensor(np.asarray(got, np.float32)) - w).abs()
+    return float((diff / (2 * step + TOL["float32"])).max())
+
+
+MMA_CASES = [
+    # (b, h, hkv, s, skv, d, causal, window, q_offset)
+    (1, 4, 1, 130, 130, 16, True, None, 0),      # GQA group 4
+    (1, 4, 2, 200, 200, 80, True, 100, 0),       # window
+    (1, 4, 4, 256, 256, 128, True, None, 0),
+    (1, 2, 2, 150, 250, 256, True, None, 100),   # q_offset
+    (1, 4, 2, 77, 150, 80, False, None, 0),      # non-causal, Skv > S
+    (1, 8, 1, 65, 65, 128, True, 10, 0),         # GQA 8, window < a tile
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,skv,d,causal,window,q_offset",
+                         MMA_CASES)
+def test_tensor_core_numerics_hold_two_bf16_steps(
+        b, h, hkv, s, skv, d, causal, window, q_offset):
+    """flash_mma's arithmetic, P as two bf16 terms, within two bf16 steps
+    (+ 2e-5) of the port's plain version and of the JAX reference on
+    every element.  The JAX reference takes the bf16 values widened to
+    float32 and its output is rounded to bf16 once: given bf16 arrays it
+    rounds its scale 1/sqrt(D) to bf16 as well, which at D = 80 and 128
+    (not bf16 numbers) moves outputs by up to ~3.2 of this bound, while
+    the Pallas kernel, the port's plain version and flash_mma scale in
+    float32."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s + d, b, h, hkv, s, skv, d),
+                                       "bfloat16")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _f32(_mma_emulation(tq, tk, tv, **kw))
+    assert _bf16_step_worst(got, _f32(FA.attention_ref(tq, tk, tv, **kw))
+                            ) <= 1.0
+    wide = [x.astype(jnp.float32) for x in (jq, jk, jv)]
+    want = j_attention_ref(*wide, **kw).astype(jnp.bfloat16)
+    assert _bf16_step_worst(got, _f32(want)) <= 1.0
+
+
+@pytest.mark.parametrize("b,h,hkv,s,skv,d,causal,window,q_offset", [
+    (1, 4, 2, 200, 200, 80, True, 100, 0),
+    (1, 4, 4, 256, 256, 128, True, None, 0),
+    (1, 2, 2, 150, 250, 256, True, None, 100),
+    (1, 4, 2, 77, 150, 80, False, None, 0),
+])
+def test_one_term_p_breaks_the_bf16_step_bound(
+        b, h, hkv, s, skv, d, causal, window, q_offset):
+    """The counter-case: P rounded to bf16 once before P·V puts outputs
+    past two bf16 steps of the plain value, which is why flash_mma
+    splits P into two terms."""
+    _, (tq, tk, tv) = _both(_qkv(s + d, b, h, hkv, s, skv, d), "bfloat16")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = _f32(_mma_emulation(tq, tk, tv, two_term=False, **kw))
+    assert _bf16_step_worst(got, _f32(FA.attention_ref(tq, tk, tv, **kw))
+                            ) > 1.0
+
+
+def test_tensor_core_rows_must_start_on_16_bytes():
+    """The card wrapper's check before the tensor-core kernel (it runs on
+    CUDA tensors only; here it is called on host tensors): bf16 rows on
+    16 bytes pass, a view shifted by one element or with a row stride off
+    a multiple of 8 elements raises, and a size-1 dimension's stride does
+    not matter."""
+    wide = torch.zeros((2, 3, 40, 136), dtype=torch.bfloat16)
+    FA.ops._check_aligned(wide[..., :128], wide[..., 8:136],
+                          wide[:1, :1, :, :128].transpose(1, 2))
+    for bad in (wide[..., 1:129], torch.zeros((2, 3, 40, 132),
+                                              dtype=torch.bfloat16)[..., :128]):
+        with pytest.raises(ValueError, match="16 bytes"):
+            FA.ops._check_aligned(wide[..., :128], bad, wide[..., :128])
+
+
+def test_tuning_variants_edit_the_shipped_kernel():
+    """Each variant of K6's tuning script (run on a card) is one edit of
+    text that the shipped source still holds."""
+    from repro_torch.kernels.flash_attention import variants
+    with open(FA.ops.SOURCE) as f:
+        text = f.read()
+    for name, edit in variants.VARIANTS.items():
+        assert edit is None or (edit[0] in text and edit[1] not in text), name
 
 
 def _assignments(seed, t, k, e, pad=0.0):
