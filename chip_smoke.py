@@ -35,6 +35,16 @@ paths at realistic sizes:
   width, the kernel path against the plain path and decode against a
   full forward.
 
+K5 is also held bit for bit to its written-out float32 sum order
+(``kernels/moe_histogram/order.py``) and timed beside an empty kernel,
+the floor under a launch; ``serve_profile`` counts one K5 kernel per MoE
+layer and call, and ten K5 calls alone at each serve input, captured
+in a CUDA graph, are ten kernels and nothing else (no memset); ``k3_k5_ptxas`` lists the
+registers of each of K3's five kernels and K5's one (from the build log
+kept beside each library, so a cached build reports too) and fails on a
+spill or a kernel it does not find.  K2–K4's operation bounds count one
+instruction per lane and clock (SINGLE_ISSUE_OPS_PER_S).
+
 Each phase prints one JSON line; then the card's name and power limit
 as nvidia-smi gives them, the ``kernels`` line, and last
 ``{"ok": true, "device": ...}``.
@@ -57,6 +67,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# one instruction per lane and clock: 132 SMs × 128 lanes × 1.98 GHz (the
+# FMA-doubled FP32_OPS_PER_S counts an FMA as two operations; K2–K4's
+# compares, logic and adds issue one instruction each)
+SINGLE_ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 
 # the main path's realistic size (see PERF.md, "Cells")
@@ -198,10 +212,11 @@ def time_call_ms(torch, fn) -> float:
     return time_ms(torch, [fn], reps)
 
 
-def roofline(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time in ms for ``nbytes`` moved and ``ops`` float32
-    operations, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def roofline(nbytes: float, ops: float, rate: float = FP32_OPS_PER_S
+             ) -> tuple[float, str]:
+    """Least time in ms for ``nbytes`` moved and ``ops`` operations at
+    ``rate`` a second, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -217,36 +232,37 @@ def k1_bound(p: int, g1: int) -> tuple[float, str, int]:
 def k2_cost(n: int, q: int) -> dict:
     """K2's least time: points (n, 2) and rects (q, 4) read once, the two
     int32 count vectors written once; 4 compares + 3 ands + 1 add per
-    (point, rect) pair."""
+    (point, rect) pair, single-issue instructions."""
     nbytes = n * 8 + q * 16 + (n + q) * 4
     ops = 8 * n * q
-    bound_ms, bound_by = roofline(nbytes, ops)
+    bound_ms, bound_by = roofline(nbytes, ops, SINGLE_ISSUE_OPS_PER_S)
     return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": ops, "peak_ops_per_s": FP32_OPS_PER_S}
+            "ops": ops, "peak_ops_per_s": SINGLE_ISSUE_OPS_PER_S}
 
 
 def k3_cost(n: int, q: int, t: int, inside: int) -> dict:
     """K3's least time: points, rects, both (·, t) float32 masks read
     once, the counts written once; K2's 8 operations per pair, plus the
     ceil(t/32) word tests of each of the ``inside`` pairs that pass the
-    spatial test (the only pairs whose keywords this data needs)."""
+    spatial test (the only pairs whose keywords this data needs),
+    single-issue instructions."""
     nbytes = n * 8 + q * 16 + (n + q) * t * 4 + (n + q) * 4
     ops = 8 * n * q + -(-t // 32) * inside
-    bound_ms, bound_by = roofline(nbytes, ops)
+    bound_ms, bound_by = roofline(nbytes, ops, SINGLE_ISSUE_OPS_PER_S)
     return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "ops": ops, "inside_pairs": inside,
-            "peak_ops_per_s": FP32_OPS_PER_S}
+            "peak_ops_per_s": SINGLE_ISSUE_OPS_PER_S}
 
 
 def k4_cost(n: int, q: int, k: int) -> dict:
     """K4's least time: points (n, 2) and foci (q, 2) read once, the
     (q, k) distances written once; 2 subs + 2 muls + 1 add + 1 compare
-    against the k-th per (point, focus) pair."""
+    against the k-th per (point, focus) pair, single-issue instructions."""
     nbytes = (n + q) * 8 + q * k * 4
     ops = 6 * n * q
-    bound_ms, bound_by = roofline(nbytes, ops)
+    bound_ms, bound_by = roofline(nbytes, ops, SINGLE_ISSUE_OPS_PER_S)
     return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": ops, "peak_ops_per_s": FP32_OPS_PER_S}
+            "ops": ops, "peak_ops_per_s": SINGLE_ISSUE_OPS_PER_S}
 
 
 def counts_error(torch, got, want, what: str) -> int:
@@ -908,18 +924,31 @@ def k5_cost(n: int, e: int) -> dict:
             "ops": ops, "peak_ops_per_s": FP32_OPS_PER_S}
 
 
-def k5_row(torch, MH, idx, gates, e: int) -> dict:
+def launch_floor_ms(torch) -> float:
+    """Device time of one empty kernel (``torch.cuda._sleep(0)``), timed
+    as :func:`time_call_ms` times a kernel: the floor under a launch."""
+    return time_ms(torch, [lambda: torch.cuda._sleep(0)])
+
+
+def k5_row(torch, MH, MO, idx, gates, e: int) -> dict:
     """K5 against its plain version on card tensors: counts exact, load
-    within rtol 1e-5 and identical across two launches; times beside
+    within rtol 1e-5, equal bit for bit to the kernel's written-out sum
+    order (``order.py``) and identical across two launches; times beside
     ``torch.bincount`` of the counts plus a weighted one of the load (on
-    ids shifted by one, so that −1 falls into a bin of its own)."""
+    ids shifted by one, so that −1 falls into a bin of its own) and an
+    empty kernel's."""
     counts, load = MH.moe_histogram(idx, gates, num_experts=e)
     again = MH.moe_histogram(idx, gates, num_experts=e)
     want_c, want_l = MH.moe_histogram_ref(idx, gates, e)
+    order_c, order_l = (torch.from_numpy(a).to(idx.device) for a in
+                        MO.moe_histogram_order(idx.cpu().numpy(),
+                                               gates.cpu().numpy(), e))
     torch.cuda.synchronize()
     check(torch.equal(counts, want_c), "K5: counts differ from the plain "
           "version")
     torch.testing.assert_close(load, want_l, rtol=1e-5, atol=1e-5)
+    check(torch.equal(counts, order_c) and torch.equal(load, order_l),
+          "K5: load differs from the kernel's written-out sum order")
     check(torch.equal(counts, again[0]) and torch.equal(load, again[1]),
           "K5: two launches on the same input differ")
     shifted = (idx.reshape(-1) + 1).long()
@@ -938,10 +967,11 @@ def k5_row(torch, MH, idx, gates, e: int) -> dict:
             "plain_ms": time_call_ms(
                 torch, lambda: MH.moe_histogram_ref(idx, gates, e)),
             "library_ms": time_call_ms(torch, library),
+            "launch_floor_ms": launch_floor_ms(torch),
             **k5_cost(idx.numel(), e)}
 
 
-def phase_k5(torch, np, MH, device) -> float:
+def phase_k5(torch, np, MH, MO, device) -> float:
     """K5 at (T, K, E) in K5_SHAPES, a tenth of the ids −1 (padding)."""
     worst = 0.0
     for t, k, e in K5_SHAPES:
@@ -950,7 +980,7 @@ def phase_k5(torch, np, MH, device) -> float:
         idx[rng.random((t, k)) < 0.1] = -1
         gates = rng.uniform(0, 1, (t, k)).astype(np.float32)
         idx_d, gates_d = _on(torch, device, idx, gates)
-        row = k5_row(torch, MH, idx_d, gates_d, e)
+        row = k5_row(torch, MH, MO, idx_d, gates_d, e)
         worst = max(worst, row["max_abs_err"])
         emit({"phase": "k5", "t": t, "k": k, "e": e, **row})
     return worst
@@ -999,9 +1029,21 @@ def k6_kernel(FA, q) -> tuple[str, int]:
                                                                 4 * d)
 
 
-def k6_ptxas(log: str) -> list:
-    """Registers, spills and stack of each K6 kernel from nvcc's
-    ``-Xptxas -v`` output (the build log of this process's build)."""
+# the kernels of K3's and K5's sources, by a part of each mangled name:
+# K3's match kernel for one mask word and for more, its two packing
+# kernels and its word lister; K5's one kernel
+PTXAS_KERNELS = {
+    "keyword_match": ("keyword_match_kernelILb0E", "keyword_match_kernelILb1E",
+                      "pack_bits_kernel", "rect_keys_kernel",
+                      "list_words_kernel"),
+    "moe_histogram": ("moe_histogram_kernel",),
+}
+
+
+def ptxas(log: str) -> list:
+    """Registers, spills and stack of each kernel of a source from nvcc's
+    ``-Xptxas -v`` output (``_build.BUILD_LOG``: the log of the build
+    that was loaded, kept beside the library)."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1135,14 +1177,17 @@ def phase_k6(torch, FA, device) -> float:
 class _Recorder:
     """Keeps the arguments of the last call of ``fn`` under the key
     ``want`` gives it ("prefill" or "decode": the serve path's last
-    inputs of a kernel), and passes every call on to ``fn``."""
+    inputs of a kernel) and counts the calls under each key, and passes
+    every call on to ``fn``."""
 
     def __init__(self, fn, want):
         self.fn, self.want, self.calls, self.last = fn, want, {}, None
+        self.count = {}
 
     def __call__(self, *args, **kw):
         self.last = self.want(*args, **kw)
         self.calls[self.last] = (args, kw)
+        self.count[self.last] = self.count.get(self.last, 0) + 1
         return self.fn(*args, **kw)
 
 
@@ -1187,6 +1232,10 @@ def phase_serve(torch, kern, LS, L, MOE, device) -> dict:
     check(all(launches[n] == 0 for n in ("stats_update", "spatial_match",
                                          "keyword_match", "knn_match")),
           f"serve: launches {launches}")
+    by_call = {"moe_histogram": mh.count, "flash_attention": fa.count}
+    check(all(c == {"prefill": layers, "decode": layers * (calls - 1)}
+              for c in by_call.values()),
+          f"serve: calls by kind {by_call}")
     check(out["logits_finite"], "serve: a logit is not finite")
     check(out["tokens"].shape == (out["batch"], LM_STEPS),
           "serve: token shape")
@@ -1209,19 +1258,21 @@ def phase_serve(torch, kern, LS, L, MOE, device) -> dict:
           "decode_tok_per_s": out["decode_tok_per_s"],
           "decode_ms_per_call": out["decode_s"] / out["decode_calls"] * 1e3,
           "max_memory_allocated": peak, "launches": launches,
+          "launches_by_call": by_call,
           "replica_load_cv": out["replica_load_cv"],
           "rebalances": out["rebalances"], "ep_moves": out["ep_moves"],
           "ep_imbalance": out["ep_imbalance"],
           "logits_finite": out["logits_finite"], "log": logs})
     return {"launches": launches, "fa": fa.calls, "mh": mh.calls,
-            "batch": out["batch"]}
+            "batch": out["batch"], "layers": layers}
 
 
 def _breakdown(prof, wall: float, calls: int) -> dict:
     """Device seconds of a profiled window by kind: kernels K6 and K5 by
     name, the expert FFNs as ``aten::bmm`` and every other product as
     ``aten::mm`` (the device time of the kernels each launched), the
-    rest by kernel; the idle share against the host wall."""
+    rest by kernel; the idle share against the host wall; K5's kernel
+    launches and the window's memsets, in all and per call."""
     from torch.autograd import DeviceType
     evs = prof.key_averages()
     dev = [e for e in evs if e.device_type == DeviceType.CUDA]
@@ -1234,7 +1285,11 @@ def _breakdown(prof, wall: float, calls: int) -> dict:
 
     ops = {e.key: e.device_time_total / 1e6 for e in evs
            if e.device_type == DeviceType.CPU}
+    k5 = sum(e.count for e in dev if "moe_histogram" in e.key)
+    memsets = sum(e.count for e in dev if "memset" in e.key.lower())
     return {"calls": calls, "wall_s": wall, "device_busy_s": busy,
+            "k5_kernels": k5, "k5_kernels_per_call": k5 / calls,
+            "memsets": memsets, "memsets_per_call": memsets / calls,
             "device_idle_share": 1.0 - busy / wall,
             "k6_s": kern("flash_mma", "flash_tile", "flash_row"),
             "k5_s": kern("moe_histogram"),
@@ -1244,17 +1299,66 @@ def _breakdown(prof, wall: float, calls: int) -> dict:
                                sorted(dev, key=t, reverse=True)[:10]]}
 
 
-def phase_serve_profile(torch, M, configs, batch: int, device) -> dict:
+def _k5_alone(torch, MH, mh_calls) -> dict:
+    """The device work of ten K5 calls alone at each recorded serve
+    input, read from a CUDA graph that captured them: its nodes by type
+    (kernel, memset, memcpy or another), and the wrapper's launch count
+    over the capture.  Capture records every operation the calls put on
+    their stream; ``torch.profiler`` windows around the same calls
+    reported 7, 0 and 9 of the ten kernels."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset"}   # CUgraphNodeType
+    out = {}
+    for kind, ((idx, gates), kw) in mh_calls.items():
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            MH.moe_histogram(idx, gates, **kw)    # this stream's scratch
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = MH.ops.launches
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(10):
+                MH.moe_histogram(idx, gates, **kw)
+        launched = MH.ops.launches - before
+        handle = ctypes.c_void_p(graph.raw_cuda_graph())
+        count = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+              "serve_profile: cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * count.value)()
+        check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+              "serve_profile: cuGraphGetNodes failed")
+        found: dict = {}
+        for node in nodes:
+            code = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(node, ctypes.byref(code)) == 0,
+                  "serve_profile: cuGraphNodeGetType failed")
+            name = kinds.get(code.value, f"type {code.value}")
+            found[name] = found.get(name, 0) + 1
+        out[kind] = {"nodes": found, "launches": launched}
+        del graph
+    return out
+
+
+def phase_serve_profile(torch, M, MH, configs, serve: dict, device) -> dict:
     """Where the serve path's device time goes: the model of phase serve
     (qwen2-moe-a2.7b, full width and depth, replica 0's batch, prompt
     LM_PROMPT) rebuilt and run under ``torch.profiler`` — one prefill,
     then four decode calls after a warm one — as phase ``profile`` does
-    for the main path."""
+    for the main path.  The window must show one K5 kernel per MoE layer
+    and call, and ten K5 calls alone at each of the serve path's recorded
+    inputs, captured in a CUDA graph, exactly ten kernels and nothing
+    else (no memset: the profiled window's own memsets are PyTorch's)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     check(not torch.backends.cuda.matmul.allow_tf32,
           "serve_profile: TF32 left on by an earlier phase")
     cfg = configs.get_config(LM_ARCH)
+    batch, layers = serve["batch"], serve["layers"]
     params = M.init_params(cfg, 1, device=device)
     gen = torch.Generator(device=device).manual_seed(7)
     toks = torch.randint(0, cfg.vocab_size, (batch, LM_PROMPT),
@@ -1280,7 +1384,17 @@ def phase_serve_profile(torch, M, configs, batch: int, device) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out["decode"] = _breakdown(prof, wall, 4)
+    out["k5_alone"] = _k5_alone(torch, MH, serve["mh"])
     emit(out)
+    for kind, calls in (("prefill", 1), ("decode", 4)):
+        check(out[kind]["k5_kernels"] == layers * calls,
+              f"serve_profile {kind}: {out[kind]['k5_kernels']} K5 kernels "
+              f"for {calls} calls of {layers} MoE layers, one per layer and "
+              f"call expected")
+        alone = out["k5_alone"][kind]
+        check(alone == {"nodes": {"kernel": 10}, "launches": 10},
+              f"serve_profile: ten K5 calls at the {kind} input captured "
+              f"{alone}, ten kernels and nothing else expected")
     del params, cache
     torch.cuda.empty_cache()
     return out
@@ -1420,6 +1534,7 @@ def main() -> int:
     from repro_torch.kernels import stats_update as SU
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import moe_histogram as MH
+    from repro_torch.kernels.moe_histogram import order as MO
     from repro_torch import configs
     from repro_torch.launch import serve as LS
     from repro_torch.models import layers as L
@@ -1438,12 +1553,24 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc": _build.BUILD_LOG})
     emit({"phase": "k6_ptxas",
-          "kernels": k6_ptxas(_build.BUILD_LOG.get("flash_attention", ""))})
+          "kernels": ptxas(_build.BUILD_LOG.get("flash_attention", ""))})
+    redesigned = {name: ptxas(_build.BUILD_LOG.get(name, ""))
+                  for name in PTXAS_KERNELS}
+    emit({"phase": "k3_k5_ptxas", **redesigned})
+    for name, want in PTXAS_KERNELS.items():
+        found = [k["function"] for k in redesigned[name]]
+        check(len(found) == len(want) and all(
+            sum(w in f for f in found) == 1 for w in want),
+            f"k3_k5_ptxas: {name}'s build log lists {found}, one each of "
+            f"{want} expected")
+    check(all(k.get("spill_stores", 0) == 0 and k.get("spill_loads", 0) == 0
+              for ks in redesigned.values() for k in ks),
+          f"K3/K5 spill registers: {redesigned}")
     worst = phase_kernel(torch, SU, device)
     worst_k2 = phase_k2(torch, T, np, SM, device)
     worst_k3 = phase_k3(torch, T, np, SM, KM, device)
     worst_k4 = phase_k4(torch, T, np, KN, device)
-    worst_k5 = phase_k5(torch, np, MH, device)
+    worst_k5 = phase_k5(torch, np, MH, MO, device)
     worst_k6 = phase_k6(torch, FA, device)
     plane = T.TorchPlane("cuda")
     phase_parity(T, np, plane)
@@ -1455,7 +1582,7 @@ def main() -> int:
     pubsub = phase_pubsub(torch, T, np, kern, plane, "torch", device)
     serve = phase_serve(torch, kern, LS, L, MOE, device)
     lm_launches = serve["launches"]
-    phase_serve_profile(torch, M, configs, serve["batch"], device)
+    phase_serve_profile(torch, M, MH, configs, serve, device)
     phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs, device)
 
     # the kernels line: each kernel at the input its path gave it — K1 at
@@ -1476,7 +1603,7 @@ def main() -> int:
         (q, k, v), fkw = serve["fa"][call]
         lm[call] = {
             "moe_histogram": {"shape": list(idx.shape),
-                              **k5_row(torch, MH, idx, gates,
+                              **k5_row(torch, MH, MO, idx, gates,
                                        kw["num_experts"])},
             "flash_attention": {"q": list(q.shape), "kv": list(k.shape),
                                 "dtype": str(q.dtype), **fkw,

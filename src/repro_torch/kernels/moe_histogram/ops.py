@@ -6,12 +6,17 @@ and gates (T, K) float32 in, per-expert assignment counts and
 gate-weighted load, each (E,) float32, out; id −1 matches nothing.  On a
 CUDA tensor it launches the hand-written kernel in ``moe_histogram.cu``
 (built with nvcc at first use; E up to :data:`MAX_EXPERTS`) or raises;
-on a CPU tensor it runs the plain PyTorch version in ``ref.py``.
+on a CPU tensor it runs the plain PyTorch version in ``ref.py``.  A call
+is one kernel launch; its scratch rows and ticket are cached per
+(device, stream, E) and the two outputs are rows of one (2, E) tensor.
 ``launches`` counts the kernel launches, so a run can show it went
-through the kernel.
+through the kernel.  The launch geometry is chosen here
+(:func:`geometry`); the constants it is sized with reach the kernel as
+nvcc defines (:data:`DEFINES`), so they are stated here alone.
 """
 import ctypes
 import functools
+import math
 import os
 
 import torch
@@ -19,35 +24,83 @@ import torch
 from .. import _build
 from .ref import moe_histogram_ref
 
-__all__ = ["moe_histogram", "build", "SOURCE", "MAX_EXPERTS", "launches"]
+__all__ = ["moe_histogram", "launch", "build", "bind", "geometry",
+           "SOURCE", "MAX_EXPERTS", "launches"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "moe_histogram.cu")
-MAX_EXPERTS = 4096   # kMaxE of moe_histogram.cu: its per-block bins, 32 KB
+MAX_EXPERTS = 4096
+# warps a block, most; 32-assignment steps a warp, most; dynamic shared
+# memory a block: the 48 KB default (no opt-in) less room for the
+# kernel's static flag
+MAX_WARPS, STEPS, SMEM_BYTES = 16, 8, 47 * 1024
+SMS = 132       # the H100's SMs: the blocks a launch aims to spread over
+# the constants above as nvcc defines of moe_histogram.cu
+DEFINES = (f"-DMOE_HISTOGRAM_MAX_WARPS={MAX_WARPS}",
+           f"-DMOE_HISTOGRAM_STEPS={STEPS}",
+           f"-DMOE_HISTOGRAM_MAX_EXPERTS={MAX_EXPERTS}",
+           f"-DMOE_HISTOGRAM_SMEM_BYTES={SMEM_BYTES}")
 
 launches = 0   # kernel launches since import (or the caller's last reset)
+
+# (device index, stream, E) → [int32 scratch rows, uint32 ticket]
+_scratch: dict = {}
+
+
+def geometry(n: int, e: int) -> tuple[int, int, int, int]:
+    """(warps a block, steps, blocks, segments) of a launch over ``n``
+    assignments and ``e`` experts.  A block has as many warps as its
+    bins fit in SMEM_BYTES (8 bytes an expert and warp, plus 128 bytes of
+    gates a warp) and n needs; a warp takes ``steps`` · 32 consecutive
+    assignments, as few steps (at most STEPS) as let one wave of SMS
+    blocks hold n.  The last block folds the blocks' rows in
+    ``segments`` runs of about √blocks rows: at most one run per warp,
+    and as many (run, expert) pairs as it has threads."""
+    fit = min(MAX_WARPS, max(1, SMEM_BYTES // (8 * e + 128)))
+    warps = min(fit, max(1, -(-n // 32)))
+    steps = min(STEPS, max(1, -(-n // (SMS * warps * 32))))
+    blocks = max(1, -(-n // (warps * steps * 32)))
+    segments = max(1, min(32 * warps // e, warps, blocks,
+                          math.isqrt(blocks - 1) + 1))
+    return warps, steps, blocks, segments
+
+
+def bind(lib: ctypes.CDLL):
+    """The C launcher of a built ``moe_histogram.cu``, with its argument
+    types."""
+    fn = lib.moe_histogram_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def build():
-    """Build (first call) and bind the kernel's C launcher and the block
-    count that sizes its scratch."""
-    lib = _build.load("moe_histogram", SOURCE)
-    fn = lib.moe_histogram_launch
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int])
-    fn.restype = ctypes.c_int
-    blocks = lib.moe_histogram_blocks
-    blocks.argtypes = [ctypes.c_int]
-    blocks.restype = ctypes.c_int
-    return fn, blocks
+    """Build (first call) and bind the kernel's C launcher."""
+    return bind(_build.load("moe_histogram", SOURCE,
+                            _build.FLAGS + DEFINES))
+
+
+def _rows_and_ticket(dev, stream: int, e: int, blocks: int):
+    """The cached scratch of (``dev``, ``stream``, ``e``), its rows grown
+    to ``blocks``; the ticket is zeroed once and left zero by every
+    launch."""
+    key = (dev.index, stream, e)
+    entry = _scratch.get(key)
+    if entry is None:
+        entry = _scratch[key] = [
+            torch.empty(0, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev)]
+    if entry[0].numel() < 2 * blocks * e:
+        entry[0] = torch.empty(2 * blocks * e, dtype=torch.int32, device=dev)
+    return entry
 
 
 def moe_histogram(idx: torch.Tensor, gates: torch.Tensor, *,
                   num_experts: int):
     """idx (T, K) int32, gates (T, K) float32 → (counts (E,), load (E,))
     float32."""
-    global launches
     if idx.shape != gates.shape or idx.dim() != 2:
         raise ValueError(f"expected (T, K) ids and gates, got "
                          f"{tuple(idx.shape)} and {tuple(gates.shape)}")
@@ -63,20 +116,25 @@ def moe_histogram(idx: torch.Tensor, gates: torch.Tensor, *,
         return moe_histogram_ref(idx, gates, num_experts)
     if idx.device.type != "cuda":
         raise ValueError(f"no moe_histogram kernel for {idx.device}")
+    return launch(build(), idx, gates, num_experts)
+
+
+def launch(kernel, idx: torch.Tensor, gates: torch.Tensor,
+           num_experts: int):
+    """The histogram over checked CUDA inputs by ``kernel``, the
+    :func:`bind` of a build (:func:`moe_histogram` passes the shipped
+    build; ``variants.py`` scratch builds of cut sources)."""
+    global launches
     idx, gates = idx.contiguous(), gates.contiguous()
-    n = idx.numel()
-    fn, blocks = build()
-    dev = idx.device
-    counts_i = torch.empty(num_experts, dtype=torch.int32, device=dev)
-    part = torch.empty((blocks(n), num_experts), dtype=torch.float32,
-                       device=dev)
-    counts = torch.empty(num_experts, dtype=torch.float32, device=dev)
-    load = torch.empty(num_experts, dtype=torch.float32, device=dev)
+    n, e, dev = idx.numel(), num_experts, idx.device
+    warps, steps, blocks, segments = geometry(n, e)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(idx.data_ptr(), gates.data_ptr(), n, num_experts,
-             counts_i.data_ptr(), part.data_ptr(), counts.data_ptr(),
-             load.data_ptr(), stream, dev.index)
+    rows, ticket = _rows_and_ticket(dev, stream, e, blocks)
+    out = torch.empty((2, e), dtype=torch.float32, device=dev)
+    err = kernel(idx.data_ptr(), gates.data_ptr(), n, e, warps, steps,
+                  blocks, segments, rows.data_ptr(), ticket.data_ptr(),
+                  out.data_ptr(), stream, dev.index)
     if err:
         raise RuntimeError(f"moe_histogram launch failed: CUDA error {err}")
     launches += 1
-    return counts, load
+    return out[0], out[1]

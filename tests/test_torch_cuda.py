@@ -218,6 +218,77 @@ def test_keyword_match_kernel_equals_plain_version_with_tf32(cuda_device, n,
     assert bool((got[0] <= spatial).all()) and int(got[0].sum()) > 0
 
 
+def _edge_inputs(seed, n, q, t):
+    """Points on every edge and corner of the first rects, signed zeros
+    on both sides, rects with upper edges at +inf and empty rects (lo >
+    hi); masks of t buckets, every fourth subscription a wildcard."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.1, 1.0, (n, 2)).astype(np.float32)
+    c = rng.uniform(-0.1, 0.9, (q, 2))
+    rects = np.concatenate([c, c + rng.uniform(0.05, 0.5, (q, 2))],
+                           1).astype(np.float32)
+    k = np.arange(min(n, q))
+    pts[k, 0] = np.where(k % 2 == 0, rects[k, 0], rects[k, 2])
+    pts[k, 1] = np.where(k % 4 < 2, rects[k, 1], rects[k, 3])
+    pts[5::11, 0], pts[6::11, 1] = -0.0, 0.0
+    rects[4::9, 0], rects[5::9, 3] = 0.0, -0.0
+    rects[2::7, 2:] = np.inf
+    rects[3::7, 0] = rects[3::7, 2] + 0.1
+    pm = (rng.random((n, t)) < min(0.5, 8.0 / t)).astype(np.float32)
+    sm = (rng.random((q, t)) < 2.0 / t).astype(np.float32)
+    sm[::4] = 0.0
+    return pts, pm, rects, sm
+
+
+K3_EDGE_N = [1, 255, 257,
+             KM.ops.THREADS * KM.ops.MULTI_WORD_TUPLES_PER_THREAD + 1,
+             KM.ops.THREADS * KM.ops.TUPLES_PER_THREAD + 1]
+K3_EDGE_Q = [1, 31, 33, KM.ops.CHUNK + 1]
+
+
+@pytest.mark.parametrize("t", [1, 31, 32, 33, 4096])
+@pytest.mark.parametrize("q", K3_EDGE_Q)
+@pytest.mark.parametrize("n", K3_EDGE_N)
+def test_keyword_match_kernel_at_its_edges(cuda_device, n, q, t):
+    """K3 equals its plain version at the edges of a tile (n = 1, 255,
+    257, 256·R + 1 for the R of one mask word and of more) and of a chunk (q = 1, 31, 33, one
+    chunk + 1), on borders, signed zeros, +inf upper edges (padding must
+    not count) and empty rects, at T = 1 … 4096; all-zero subscription
+    masks give K2."""
+    pts, pm, rects, sm = _dev(cuda_device, *_edge_inputs(n + q + t, n, q, t))
+    before = KM.ops.launches
+    got = KM.keyword_match(pts, pm, rects, sm)
+    torch.cuda.synchronize()
+    assert KM.ops.launches == before + 1
+    for a, b in zip(got, KM.keyword_match_ref(pts, pm, rects, sm)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    wild = KM.keyword_match(pts, pm, rects, torch.zeros_like(sm))
+    for a, b, c in zip(wild, SM.spatial_match(pts, rects),
+                       SM.spatial_match_ref(pts, rects)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(wild[0].sum()) > 0
+
+
+@pytest.mark.parametrize("target", [1, 7, KM.ops.TARGET_BLOCKS])
+@pytest.mark.parametrize("t", [32, 100])
+def test_keyword_match_kernel_walks_chunks_in_groups(cuda_device, t,
+                                                     target):
+    """The shipped build at its R for one mask word and for four, over
+    several tiles (9000 tuples) and 40 chunks of subscriptions, its grid
+    aimed at one block (each block walks all 40 chunks through the
+    cp.async ring), at 7 (groups of 20 chunks) and at the shipped target
+    (one chunk a block): equal to the plain version."""
+    pts, pm, rects, sm = _dev(cuda_device,
+                              *_edge_inputs(t + target, 9000, 20000, t))
+    r = KM.ops.tuples_per_thread(t)
+    tiles, groups, per = KM.ops.geometry(9000, 20000, r, target)
+    assert groups * per >= 40 and (target > 7 or per >= 20)
+    got = KM.ops.launch(KM.ops.build(), r, target, pts, pm, rects, sm)
+    for a, b in zip(got, KM.keyword_match_ref(pts, pm, rects, sm)):
+        assert torch.equal(a, b)
+    assert int(got[1].sum()) > 0
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 12, 16])
 @pytest.mark.parametrize("n,q", [(16, 5), (3000, 700), (50000, 20000)])
 def test_knn_match_kernel_equals_plain_version(cuda_device, n, q, k):
@@ -307,6 +378,80 @@ def test_moe_histogram_kernel_equals_plain_version(cuda_device, t, k, e):
     assert float(counts.sum()) == int((idx >= 0).sum())
     torch.testing.assert_close(load, want_l, rtol=1e-5, atol=1e-5)
     assert torch.equal(load, again)
+
+
+def _order(idx, gates, e):
+    from repro_torch.kernels.moe_histogram.order import moe_histogram_order
+    return [torch.from_numpy(a).to(idx.device) for a in
+            moe_histogram_order(idx.cpu().numpy(), gates.cpu().numpy(), e)]
+
+
+def _hist_chunk(e):
+    """The most assignments one block takes at E = e (one step a warp)."""
+    from repro_torch.kernels import moe_histogram as MH
+    return MH.ops.geometry(1 << 20, e)[0] * 32
+
+
+@pytest.mark.parametrize("e", [1, 60, 64, 256, 257, 4096])
+@pytest.mark.parametrize("n", [1, 200, 204_800, "chunk+1"])
+def test_moe_histogram_kernel_at_its_edges(cuda_device, n, e):
+    """One launch a call at n = 1, 200 (a decode call), 204 800 (a
+    prefill) and one block's chunk + 1 (the smallest ticket pass), E = 1
+    … 4096: counts equal the plain version's, the load is within rtol
+    1e-5 of it and equal bit for bit to the kernel's written-out order
+    (order.py), ten launches give the same bits."""
+    from repro_torch.kernels import moe_histogram as MH
+    n = _hist_chunk(e) + 1 if n == "chunk+1" else n
+    k = 4 if n % 4 == 0 else 1
+    idx, gates = _assignments(n + e, n // k, k, e, cuda_device)
+    before = MH.ops.launches
+    outs = [MH.moe_histogram(idx, gates, num_experts=e) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert MH.ops.launches == before + 10
+    want_c, want_l = MH.moe_histogram_ref(idx, gates, e)
+    order_c, order_l = _order(idx, gates, e)
+    counts, load = outs[0]
+    assert torch.equal(counts, want_c) and torch.equal(counts, order_c)
+    torch.testing.assert_close(load, want_l, rtol=1e-5, atol=1e-5)
+    assert torch.equal(load, order_l)
+    for c, ld in outs[1:]:
+        assert torch.equal(c, counts) and torch.equal(ld, load)
+
+
+@pytest.mark.parametrize("e", [1, 60, 4096])
+def test_moe_histogram_all_padding_and_one_expert(cuda_device, e):
+    from repro_torch.kernels import moe_histogram as MH
+    n = 2 * _hist_chunk(e) + 3
+    idx, gates = _assignments(e, n, 1, e, cuda_device)
+    none = MH.moe_histogram(torch.full_like(idx, -1), gates, num_experts=e)
+    assert all(not bool(x.any()) for x in none)
+    one = torch.full_like(idx, e - 1)
+    counts, load = MH.moe_histogram(one, gates, num_experts=e)
+    assert float(counts[e - 1]) == n and float(counts.sum()) == n
+    assert torch.equal(load, _order(one, gates, e)[1])
+
+
+def test_moe_histogram_on_two_streams(cuda_device):
+    """Launches on two streams at once keep apart: each stream has its
+    own scratch rows and ticket, and each result is the written-out
+    order's, bit for bit."""
+    from repro_torch.kernels import moe_histogram as MH
+    e = 60
+    inputs = [_assignments(s, 51200, 4, e, cuda_device) for s in (1, 2)]
+    want = [_order(*x, e) for x in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(8):
+        for st, x in zip(streams, inputs):
+            with torch.cuda.stream(st):
+                outs.append(MH.moe_histogram(*x, num_experts=e))
+    torch.cuda.synchronize()
+    for i, (c, ld) in enumerate(outs):
+        assert torch.equal(c, want[i % 2][0]) and torch.equal(ld,
+                                                              want[i % 2][1])
+    keys = {(cuda_device.index or 0, st.cuda_stream, e) for st in streams}
+    assert keys <= set(MH.ops._scratch)
 
 
 def test_moe_histogram_rejects_too_many_experts_on_the_card(cuda_device):

@@ -272,6 +272,16 @@ def test_tuning_variants_edit_the_shipped_kernel():
         assert edit is None or (edit[0] in text and edit[1] not in text), name
 
 
+def test_histogram_cuts_edit_the_shipped_kernel():
+    """Each cut of K5's timing script (run on a card) is one edit of text
+    that the shipped source holds once."""
+    from repro_torch.kernels.moe_histogram import variants
+    with open(MH.ops.SOURCE) as f:
+        text = f.read()
+    for name, (old, _) in variants.CUTS.items():
+        assert text.count(old) == 1, name
+
+
 def _assignments(seed, t, k, e, pad=0.0):
     rng = np.random.default_rng(seed)
     idx = rng.integers(0, e, (t, k)).astype(np.int32)
@@ -309,3 +319,64 @@ def test_histogram_wrapper_rejects_bad_inputs():
         MH.moe_histogram(idx.long(), gates, num_experts=4)
     with pytest.raises(ValueError, match=r"\(T, K\)"):
         MH.moe_histogram(idx, gates[:, :1], num_experts=4)
+
+
+# K5's fixed float32 sum order (kernels/moe_histogram/order.py): the
+# card holds the kernel to it bit for bit; here it is held to the plain
+# version and to the JAX package's interpret-mode kernel
+HIST_ORDER_CASES = [
+    # (t, k, e, pad, gates)
+    (51200, 4, 60, 0.0, "uniform"),   # qwen2-moe prefill: 100 blocks
+    (50, 4, 60, 0.0, "uniform"),      # qwen2-moe decode: one block
+    (128, 4, 60, 0.1, "uniform"),     # exactly one block's 512
+    (129, 4, 60, 0.1, "uniform"),     # one more: two blocks, the ticket
+    (100_000, 4, 60, 0.1, "uniform"), # 131 blocks, 8 runs in the fold
+    (51200, 4, 60, 0.1, "mixed"),     # gates of about 1e3 and 1e-3
+    (16384, 6, 64, 0.1, "mixed"),
+    (4097, 2, 300, 0.1, "mixed"),
+    (5000, 8, 4096, 0.1, "uniform"),  # one warp a block
+    (104, 4, 60, 0.1, "uniform"),     # 13 warps: an odd tree
+    (1000, 3, 1, 0.5, "mixed"),
+]
+
+
+@pytest.mark.parametrize("t,k,e,pad,kind", HIST_ORDER_CASES)
+def test_histogram_kernel_order_matches_plain_and_jax(t, k, e, pad, kind):
+    from repro_torch.kernels.moe_histogram.order import moe_histogram_order
+    idx, gates = _assignments(t + k + e, t, k, e, pad)
+    if kind == "mixed":
+        big = np.random.default_rng(t).random((t, k)) < 0.5
+        gates = (gates + 0.5) * np.where(big, 1e3, 1e-3).astype(np.float32)
+    counts, load = moe_histogram_order(idx, gates, e)
+    assert counts.dtype == load.dtype == np.float32
+    pc, pl = MH.moe_histogram_ref(torch.from_numpy(idx),
+                                  torch.from_numpy(gates), e)
+    jc, jl = j_hist(jnp.asarray(idx), jnp.asarray(gates), num_experts=e,
+                    interpret=True)
+    for c, ld in ((pc.numpy(), pl.numpy()), (np.asarray(jc), np.asarray(jl))):
+        np.testing.assert_array_equal(counts, c)
+        np.testing.assert_allclose(load, ld, rtol=1e-5)
+    exact = np.zeros(e)
+    keep = idx >= 0
+    np.add.at(exact, idx[keep], gates[keep].astype(np.float64))
+    np.testing.assert_allclose(load, exact, rtol=1e-5)
+
+
+@pytest.mark.parametrize("e", [1, 60, 64, 256, 257, 4096])
+@pytest.mark.parametrize("n", [0, 1, 200, 512, 513, 204_800])
+def test_histogram_geometry_fits_the_kernel(n, e):
+    """ops.geometry stays inside what the kernel's launcher accepts: the
+    blocks cover n with as few steps as one block allows, the bins fit
+    the shared memory, the fold's runs are at most one a warp."""
+    warps, steps, blocks, segments = MH.ops.geometry(n, e)
+    chunk = warps * steps * 32
+    assert 1 <= warps <= MH.ops.MAX_WARPS and 1 <= steps <= MH.ops.STEPS
+    assert (blocks - 1) * chunk < max(n, 1) <= blocks * chunk
+    assert warps == 1 or (warps * (8 * e + 128) <= MH.ops.SMEM_BYTES
+                          and (warps - 1) * 32 < n)
+    assert steps == 1 or (steps - 1) * MH.ops.SMS * warps * 32 < n
+    assert 4 * (2 * warps * e + 32 * warps) <= MH.ops.SMEM_BYTES
+    assert 1 <= segments <= min(warps, blocks)
+    assert segments * e <= max(32 * warps, e)
+    if n <= 512 and e <= 64:            # every decode call: one block
+        assert blocks == 1

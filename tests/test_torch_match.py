@@ -168,6 +168,40 @@ def test_keyword_match_rejects_mismatched_masks():
         KM.keyword_match(_t(pts), _t(pm).double(), _t(rects), _t(sm))
 
 
+GEOMETRY_SIZES = [1, 31, 32, 33, 20_000, 1_000_000]
+
+
+@pytest.mark.parametrize("t", [32, 33])
+@pytest.mark.parametrize("q", GEOMETRY_SIZES)
+@pytest.mark.parametrize("n", GEOMETRY_SIZES)
+def test_keyword_match_geometry_covers_every_pair_once(n, q, t):
+    """Block (x, y) tests the tuples of tile x (thread i's slot s holds
+    tuple x·THREADS·r + s·THREADS + i) against the chunks of group y, at
+    the shipped R of one mask word (t = 32) and of two (t = 33); the
+    tiles partition [0, n) padded to a tile, the groups partition the
+    chunks, so every (tuple, subscription) pair is tested exactly once.
+    The launcher's own checks hold too."""
+    threads, chunk = KM.ops.THREADS, KM.ops.CHUNK
+    r = KM.ops.tuples_per_thread(t)
+    assert r == (KM.ops.TUPLES_PER_THREAD if t <= 32
+                 else KM.ops.MULTI_WORD_TUPLES_PER_THREAD)
+    tiles, groups, per = KM.ops.geometry(n, q, r)
+    chunks = -(-q // chunk)
+    slots = (np.arange(tiles)[:, None, None] * threads * r
+             + np.arange(r)[None, :, None] * threads
+             + np.arange(threads)[None, None, :]).ravel()
+    np.testing.assert_array_equal(np.sort(slots),
+                                  np.arange(tiles * threads * r))
+    assert n <= tiles * threads * r < n + threads * r
+    owned = np.concatenate([np.arange(y * per, min((y + 1) * per, chunks))
+                            for y in range(groups)])
+    np.testing.assert_array_equal(owned, np.arange(chunks))
+    assert all(y * per < chunks for y in range(groups))   # none empty
+    assert q <= chunks * chunk < q + chunk
+    assert 1 <= groups <= 65535 and per >= 1
+    assert groups * per >= chunks and (groups - 1) * per < chunks
+
+
 # ---------------------------------------------------------------------------
 # K4: knn_match
 # ---------------------------------------------------------------------------
