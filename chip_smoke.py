@@ -42,7 +42,14 @@ layer and call, and ten K5 calls alone at each serve input, captured
 in a CUDA graph, are ten kernels and nothing else (no memset); ``k3_k5_ptxas`` lists the
 registers of each of K3's five kernels and K5's one (from the build log
 kept beside each library, so a cached build reports too) and fails on a
-spill or a kernel it does not find.  K2–K4's operation bounds count one
+spill or a kernel it does not find; ``k4_k6_ptxas`` does the same for
+K4's match and merge kernels at every list length and K6's decode and
+merge kernels.  Phase ``k4`` holds K4 at k = 8, 17 and 32; the
+``kernels`` line gives K6 twice, at the serve path's last prefill input
+(the launches of its prefill kernels) and, as ``flash_attention_decode``,
+at its last decode input (the launches of its decode and merge
+kernels); each wrapper counts every kernel it launches, and K4's and
+K6's rows split their count by kernel.  K2–K4's operation bounds count one
 instruction per lane and clock (SINGLE_ISSUE_OPS_PER_S).
 
 Each phase prints one JSON line; then the card's name and power limit
@@ -79,6 +86,9 @@ LAMBDA = 131072                # largest batch of benchmarks/engine_throughput.p
 QUERIES = 100_000              # README pub/sub quickstart scale
 TICKS, ROUND_EVERY, WINDOW = 96, 8, 16
 KNN_K = 8                      # QuerySpec / WorkloadSpec.k
+# phase k4's list lengths: the path's k, and past the register cap of
+# 16 that the kernel had before (the lists of 24 and 32)
+K4_KS = (KNN_K, 17, 32)
 
 # the pub/sub deployment of benchmarks/pubsub.py (BENCH_pubsub.json)
 PS_GRID, PS_MACHINES = 64, 8
@@ -117,6 +127,7 @@ K6_CASES = (
     ("qwen2-moe decode f32", 64, 16, 16, 1, 1056, 128, "float32", None,
      1055),
     ("h2o-danube decode f32", 4, 32, 8, 1, 8192, 80, "float32", 4096, 8191),
+    ("h2o-danube decode", 4, 32, 8, 1, 8192, 80, "bfloat16", 4096, 8191),
 )
 
 # the TPU kernel each CUDA kernel replaces
@@ -417,15 +428,18 @@ def phase_k2(torch, T, np, SM, device) -> int:
 
 def phase_k4(torch, T, np, KN, device) -> float:
     """K4 at N in {4096, 131 072} points × Q in {1000, 100 000} foci (the
-    queries' centres), k = 8."""
+    queries' centres), k in K4_KS."""
     worst = 0.0
     for n in K24_N:
         for q in K24_Q:
             pts, rects = _match_inputs(T, np, n, q)
             pts, foci = _on(torch, device, pts, _centres(np, rects))
-            row = k4_row(torch, KN, pts, foci, KNN_K)
-            worst = max(worst, row["max_abs_err"])
-            emit({"phase": "k4", "n": n, "q": q, "k": KNN_K, **row})
+            for k in K4_KS:
+                row = k4_row(torch, KN, pts, foci, k)
+                worst = max(worst, row["max_abs_err"])
+                emit({"phase": "k4", "n": n, "q": q, "k": k,
+                      "splits": KN.ops.build()[1](n, q, k)
+                      // (q * KN.ref.list_len(k)) or 1, **row})
     return worst
 
 
@@ -485,14 +499,24 @@ def phase_k3(torch, T, np, SM, KM, device) -> int:
 
 
 def reset_launches(kern: dict) -> None:
-    """Set every kernel wrapper's launch count to 0 (``kern`` maps a
-    kernel's name to its package)."""
+    """Set every kernel wrapper's launch counts to 0 (``kern`` maps a
+    kernel's name to its package), its split by kernel too."""
     for pkg in kern.values():
         pkg.ops.launches = 0
+        for name in getattr(pkg.ops, "launches_by_kernel", ()):
+            pkg.ops.launches_by_kernel[name] = 0
 
 
 def read_launches(kern: dict) -> dict:
     return {name: pkg.ops.launches for name, pkg in kern.items()}
+
+
+def read_by_kernel(kern: dict) -> dict:
+    """The launch counts of the wrappers that launch more than one kernel
+    (K4, K6), by kernel."""
+    return {name: dict(pkg.ops.launches_by_kernel)
+            for name, pkg in kern.items()
+            if hasattr(pkg.ops, "launches_by_kernel")}
 
 
 def phase_match(torch, T, np, kern, plane, device) -> dict:
@@ -511,10 +535,15 @@ def phase_match(torch, T, np, kern, plane, device) -> dict:
     dist = plane.knn_distances(pts, foci, k=KNN_K)
     t2 = time.perf_counter()
     launches = read_launches(kern)            # … to here
+    by_kernel = read_by_kernel(kern)["knn_match"]
+    split = int(KN.ops.build()[1](LAMBDA, QUERIES, KNN_K) > 0)
     check(launches == {"stats_update": 0, "spatial_match": 1,
-                       "keyword_match": 0, "knn_match": 1,
-                       "moe_histogram": 0, "flash_attention": 0},
-          f"match: launches {launches}, one K2 and one K4 expected")
+                       "keyword_match": 0, "knn_match": 1 + split,
+                       "moe_histogram": 0, "flash_attention": 0}
+          and by_kernel == {"knn_match_kernel": 1,
+                            "knn_merge_kernel": split},
+          f"match: launches {launches} ({by_kernel}), one K2 and one K4 "
+          f"call expected")
     pts_d, rects_d, foci_d = _on(torch, device, pts, rects, foci)
     counts_error(torch, _on(torch, device, pc, qc),
                  SM.spatial_match_ref(pts_d, rects_d), "match: K2")
@@ -531,9 +560,9 @@ def phase_match(torch, T, np, kern, plane, device) -> dict:
           "tuples_matched": int((pc > 0).sum()),
           "match_counts_wall_s": t1 - t0, "knn_distances_wall_s": t2 - t1,
           "mean_kth_distance": float(dist[:, -1].mean()),
-          "launches": launches})
+          "launches": launches, "launches_by_kernel": by_kernel})
     return {"pts": pts_d, "rects": rects_d, "foci": foci_d,
-            "launches": launches}
+            "launches": launches, "by_kernel": by_kernel}
 
 
 def _covered(np, terms, sub_terms):
@@ -1021,10 +1050,10 @@ def k6_cost(q, k, causal, window, q_offset) -> dict:
 def k6_kernel(FA, q) -> tuple[str, int]:
     """Which of K6's kernels takes q, and the operations it issues per
     visible pair: the bf16 tensor-core kernel 6·D (P·V runs twice, P as
-    two bf16 terms), the float32 tile and the row kernels 4·D."""
+    two bf16 terms), the float32 tile and the decode kernels 4·D."""
     d = q.shape[3]
     if q.shape[2] <= FA.ops.ROW_MAX:
-        return "flash_row", 4 * d
+        return "flash_decode", 4 * d
     return ("flash_mma", 6 * d) if q.element_size() == 2 else ("flash_tile",
                                                                 4 * d)
 
@@ -1037,6 +1066,15 @@ PTXAS_KERNELS = {
                       "pack_bits_kernel", "rect_keys_kernel",
                       "list_words_kernel"),
     "moe_histogram": ("moe_histogram_kernel",),
+}
+# K4's and K6's decode kernels, by a part of each mangled name and how
+# many instantiations each source must list: K4's match and merge
+# kernels for list lengths 1 … 16, 24 and 32; K6's decode kernel for
+# D in {16, 80, 128, 256} × {float32, bfloat16} × {1, 4} rows and its
+# merge for each D and type
+PTXAS_NEW_KERNELS = {
+    "knn_match": {"knn_match_kernel": 18, "knn_merge_kernel": 18},
+    "flash_attention": {"flash_decode": 16, "flash_merge": 8},
 }
 
 
@@ -1154,11 +1192,12 @@ def k6_row(torch, FA, q, k, v, causal=True, window=None, q_offset=0,
                 "issued_tflops": per_pair * cost["visible_pairs"] / ms / 1e9}
 
 
-def phase_k6(torch, FA, device) -> float:
+def phase_k6(torch, FA, device) -> dict:
     """K6 at the cases of K6_CASES: qwen2-moe's prefill and decode (at
     the cache's end and mid-cache), h2o-danube's GQA sliding window at
-    D = 80, gemma's D = 256, in bfloat16 and again in float32."""
-    worst = 0.0
+    D = 80, gemma's D = 256, in bfloat16 and again in float32.  Returns
+    the worst error of the prefill cases and of the decode cases."""
+    worst = {"prefill": 0.0, "decode": 0.0}
     gen = torch.Generator(device=device).manual_seed(6)
     for name, b, h, hkv, s, skv, d, dt, window, off in K6_CASES:
         dtype = getattr(torch, dt)
@@ -1166,7 +1205,8 @@ def phase_k6(torch, FA, device) -> float:
                    .to(dtype) for shape in ((b, h, s, d), (b, hkv, skv, d),
                                             (b, hkv, skv, d)))
         row = k6_row(torch, FA, q, k, v, True, window, off)
-        worst = max(worst, row["max_abs_err"])
+        kind = "decode" if s <= FA.ops.ROW_MAX else "prefill"
+        worst[kind] = max(worst[kind], row["max_abs_err"])
         emit({"phase": "k6", "case": name, "shape": [b, h, hkv, s, skv, d],
               "dtype": dt, "window": window, "q_offset": off, **row})
         del q, k, v
@@ -1177,17 +1217,14 @@ def phase_k6(torch, FA, device) -> float:
 class _Recorder:
     """Keeps the arguments of the last call of ``fn`` under the key
     ``want`` gives it ("prefill" or "decode": the serve path's last
-    inputs of a kernel) and counts the calls under each key, and passes
-    every call on to ``fn``."""
+    inputs of a kernel), and passes every call on to ``fn``."""
 
     def __init__(self, fn, want):
         self.fn, self.want, self.calls, self.last = fn, want, {}, None
-        self.count = {}
 
     def __call__(self, *args, **kw):
         self.last = self.want(*args, **kw)
         self.calls[self.last] = (args, kw)
-        self.count[self.last] = self.count.get(self.last, 0) + 1
         return self.fn(*args, **kw)
 
 
@@ -1196,11 +1233,13 @@ def phase_serve(torch, kern, LS, L, MOE, device) -> dict:
     qwen2-moe-a2.7b at full width and depth (PERF.md §4): LM_SESSIONS
     sessions routed over LM_REPLICAS replicas, replica 0's batch
     prefilled at LM_PROMPT tokens and decoded for LM_STEPS tokens.  K5
-    and K6 must launch once per layer per prefill or decode call, and
-    every logit must be finite.  The kernels' last prefill and decode
-    inputs are kept for the kernels line.  TF32 is off, as a user's
-    process has it by default, so the MoE router's product is float32 as
-    the config states."""
+    must launch once per layer per prefill or decode call; K6's prefill
+    kernel once per layer, its decode kernel once per layer per decode
+    call and its merge after each decode launch whose keys are chunked
+    (counted by the wrapper, by kernel); every logit must be finite.
+    The kernels' last prefill and decode inputs are kept for the kernels
+    line.  TF32 is off, as a user's process has it by default, so the
+    MoE router's product is float32 as the config states."""
     fa = _Recorder(L.flash_attention,
                    lambda q, *a, **kw: "decode" if q.shape[2] == 1
                    else "prefill")
@@ -1218,6 +1257,7 @@ def phase_serve(torch, kern, LS, L, MOE, device) -> dict:
                            replicas=LM_REPLICAS, device=device,
                            log=logs.append)
             launches = read_launches(kern)    # … to here
+            by_kernel = read_by_kernel(kern)
     finally:
         L.flash_attention, MOE.moe_histogram = fa.fn, mh.fn
     peak = torch.cuda.max_memory_allocated()
@@ -1225,17 +1265,20 @@ def phase_serve(torch, kern, LS, L, MOE, device) -> dict:
     calls = 1 + out["decode_calls"]
     check(out["d_model"] == 2048 and layers == 24,
           "serve: not qwen2-moe-a2.7b at full width and depth")
+    FA = kern["flash_attention"]
+    (q, k, _), fkw = fa.calls["decode"]
+    merge = int(FA.ops.decode_chunks(FA.ops.build(), q, k, **fkw) > 1)
+    decodes = layers * (calls - 1)
     check(launches["moe_histogram"] == layers * calls
-          and launches["flash_attention"] == layers * calls,
-          f"serve: launches {launches}, {layers} K5 and {layers} K6 per "
-          f"call expected over {calls} calls")
+          and by_kernel["flash_attention"] == {
+              "flash_decode": decodes, "flash_merge": merge * decodes,
+              "flash_tile": 0, "flash_mma": layers}
+          and launches["flash_attention"] == layers + (1 + merge) * decodes,
+          f"serve: launches {launches} ({by_kernel}), {layers} K5 and "
+          f"{layers} K6 calls per call expected over {calls} calls")
     check(all(launches[n] == 0 for n in ("stats_update", "spatial_match",
                                          "keyword_match", "knn_match")),
           f"serve: launches {launches}")
-    by_call = {"moe_histogram": mh.count, "flash_attention": fa.count}
-    check(all(c == {"prefill": layers, "decode": layers * (calls - 1)}
-              for c in by_call.values()),
-          f"serve: calls by kind {by_call}")
     check(out["logits_finite"], "serve: a logit is not finite")
     check(out["tokens"].shape == (out["batch"], LM_STEPS),
           "serve: token shape")
@@ -1258,13 +1301,13 @@ def phase_serve(torch, kern, LS, L, MOE, device) -> dict:
           "decode_tok_per_s": out["decode_tok_per_s"],
           "decode_ms_per_call": out["decode_s"] / out["decode_calls"] * 1e3,
           "max_memory_allocated": peak, "launches": launches,
-          "launches_by_call": by_call,
+          "launches_by_kernel": by_kernel,
           "replica_load_cv": out["replica_load_cv"],
           "rebalances": out["rebalances"], "ep_moves": out["ep_moves"],
           "ep_imbalance": out["ep_imbalance"],
           "logits_finite": out["logits_finite"], "log": logs})
-    return {"launches": launches, "fa": fa.calls, "mh": mh.calls,
-            "batch": out["batch"], "layers": layers}
+    return {"launches": launches, "by_kernel": by_kernel, "fa": fa.calls,
+            "mh": mh.calls, "batch": out["batch"], "layers": layers}
 
 
 def _breakdown(prof, wall: float, calls: int) -> dict:
@@ -1291,7 +1334,8 @@ def _breakdown(prof, wall: float, calls: int) -> dict:
             "k5_kernels": k5, "k5_kernels_per_call": k5 / calls,
             "memsets": memsets, "memsets_per_call": memsets / calls,
             "device_idle_share": 1.0 - busy / wall,
-            "k6_s": kern("flash_mma", "flash_tile", "flash_row"),
+            "k6_s": kern("flash_mma", "flash_tile", "flash_decode",
+                         "flash_merge"),
             "k5_s": kern("moe_histogram"),
             "expert_bmm_s": ops.get("aten::bmm", 0.0),
             "other_mm_s": ops.get("aten::mm", 0.0),
@@ -1449,14 +1493,15 @@ def phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs,
                 outs.append(logits)
                 counts.append(aux["expert_counts"])
             launches = read_launches(kern)
+            fa_calls = launches["flash_attention"] - read_by_kernel(
+                kern)["flash_attention"]["flash_merge"]
         finally:
             L.flash_attention, MOE.moe_histogram = saved
         n = 0 if plain_path else cfg.num_layers * (1 + steps)
-        check(launches["moe_histogram"] == n
-              and launches["flash_attention"] == n,
+        check(launches["moe_histogram"] == n and fa_calls == n,
               f"serve_check: launches {launches} on the "
-              f"{'plain' if plain_path else 'kernel'} path, {n} each "
-              f"expected")
+              f"{'plain' if plain_path else 'kernel'} path, {n} K5 and "
+              f"{n} K6 calls expected")
         return outs, counts
 
     def compare(cfg, params, steps):
@@ -1566,6 +1611,17 @@ def main() -> int:
     check(all(k.get("spill_stores", 0) == 0 and k.get("spill_loads", 0) == 0
               for ks in redesigned.values() for k in ks),
           f"K3/K5 spill registers: {redesigned}")
+    new = {name: [k for k in ptxas(_build.BUILD_LOG.get(name, ""))
+                  if any(w in k["function"] for w in want)]
+           for name, want in PTXAS_NEW_KERNELS.items()}
+    emit({"phase": "k4_k6_ptxas", **new})
+    for name, want in PTXAS_NEW_KERNELS.items():
+        found = {w: sum(w in k["function"] for k in new[name]) for w in want}
+        check(found == want, f"k4_k6_ptxas: {name}'s build log lists "
+              f"{found} kernels, {want} expected")
+    check(all(k.get("spill_stores", 0) == 0 and k.get("spill_loads", 0) == 0
+              for ks in new.values() for k in ks),
+          f"K4/K6-decode spill registers: {new}")
     worst = phase_kernel(torch, SU, device)
     worst_k2 = phase_k2(torch, T, np, SM, device)
     worst_k3 = phase_k3(torch, T, np, SM, KM, device)
@@ -1582,6 +1638,7 @@ def main() -> int:
     pubsub = phase_pubsub(torch, T, np, kern, plane, "torch", device)
     serve = phase_serve(torch, kern, LS, L, MOE, device)
     lm_launches = serve["launches"]
+    fa_by = serve["by_kernel"]["flash_attention"]   # K6's launches by kernel
     phase_serve_profile(torch, M, MH, configs, serve, device)
     phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs, device)
 
@@ -1625,10 +1682,16 @@ def main() -> int:
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
 
-    def row(name, launches, err, t, library_ms=None):
+    def row(name, launches, err, t, library_ms=None, source=None):
+        """A kernel's row; ``launches`` a count or, for a wrapper of more
+        than one kernel, the split by kernel that the row sums."""
+        source = source or name
+        split = launches if isinstance(launches, dict) else None
         return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/kernels/{name}/{name}.cu",
-                "replaces": REPLACES[name], "launches": launches,
+                "source": f"src/repro_torch/kernels/{source}/{source}.cu",
+                "replaces": REPLACES[source],
+                "launches": sum(split.values()) if split else launches,
+                **({"launches_by_kernel": split} if split else {}),
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": library_ms}
@@ -1640,17 +1703,26 @@ def main() -> int:
             max(worst_k2, k2["max_abs_err"]), k2),
         row("keyword_match", pubsub["launches"]["keyword_match"],
             max(worst_k3, k3["max_abs_err"]), k3),
-        row("knn_match", match["launches"]["knn_match"],
+        row("knn_match", match["by_kernel"],
             max(worst_k4, k4["max_abs_err"]), k4),
         row("moe_histogram", lm_launches["moe_histogram"],
             max(worst_k5, lm["prefill"]["moe_histogram"]["max_abs_err"]),
             lm["prefill"]["moe_histogram"],
             lm["prefill"]["moe_histogram"]["library_ms"]),
-        row("flash_attention", lm_launches["flash_attention"],
-            max(worst_k6, lm["prefill"]["flash_attention"]["max_abs_err"],
-                lm["decode"]["flash_attention"]["max_abs_err"]),
+        row("flash_attention",
+            {n: fa_by[n] for n in ("flash_mma", "flash_tile")},
+            max(worst_k6["prefill"],
+                lm["prefill"]["flash_attention"]["max_abs_err"]),
             lm["prefill"]["flash_attention"],
-            lm["prefill"]["flash_attention"]["library_ms"])]})
+            lm["prefill"]["flash_attention"]["library_ms"]),
+        # the same source's decode kernels at the serve path's decode input
+        row("flash_attention_decode",
+            {n: fa_by[n] for n in ("flash_decode", "flash_merge")},
+            max(worst_k6["decode"],
+                lm["decode"]["flash_attention"]["max_abs_err"]),
+            lm["decode"]["flash_attention"],
+            lm["decode"]["flash_attention"]["library_ms"],
+            source="flash_attention")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -51,17 +51,33 @@
 //   reads, K rows padded by 4 floats so the reads are free of bank
 //   conflicts) and D/32 columns of the accumulator; P reaches the P·V
 //   product by warp shuffles.
-// - flash_row (S <= kRowMax, a decode step): one block of 4 warps per
-//   (b, h, row), each warp streaming a quarter of the row's key range
-//   from device memory (lanes split D, so each key row is one coalesced
-//   read) with its own running state, four keys a step so their loads
-//   overlap; the four states are merged at the end.
+// - flash_decode (S <= kRowMax, a decode step): flash-decoding.
+//   The keys the S rows see are cut into chunks, and one block of 4
+//   warps takes (b, kv head, chunk) for all the query heads of that kv
+//   head (GQA) and the S rows at once (groups of kDecRows rows, with 4
+//   warps, where group·S > 1; 3 warps for one row), so each K/V row
+//   crosses from device memory once, as
+//   the bytes bound counts it.  Lanes hold 16-byte vectors of a key row
+//   (16 lanes a bf16 row at D = 128), each slot of lanes loads
+//   kDecUnroll rows of K and V before it computes, and the scores are
+//   summed over a row's lanes by shuffles.  Every slot, then every warp,
+//   keeps its own running max, sum and accumulator, merged at the end in
+//   a fixed order.  The chunk count fills the card's resident blocks
+//   (flash_decode_chunks, from the occupancy the registers allow: one
+//   chunk at the serve path's 800 (b, kv head) pairs, where one wave
+//   holds them all, 16 at h2o-danube's 32, enough for several waves
+//   when one wave does not hold the pairs, so a partial last wave is
+//   short); past one chunk, each chunk leaves float32 partials in
+//   scratch and flash_merge adds them in ascending chunk order, so the
+//   result is the same bits from run to run.
 //
 // Numerics: scores, the running max, the row sum and the accumulator are
 // float32; exponentials are expf (not __expf); multiply-adds contract to
 // FMAs (the build drops --fmad=false), so a result is held to a
 // tolerance against the plain version, not bit for bit.  flash_mma needs
-// every row of q, k and v to start on 16 bytes (the wrapper checks).
+// every row of q, k and v to start on 16 bytes, flash_decode every row of
+// k and v (the wrapper checks, and copies a decode step's k and v that
+// do not).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,9 +91,22 @@ constexpr int kWarps = 8;          // flash_tile: warps per block
 constexpr int kRows = 8;           // flash_tile: query rows per warp
 constexpr int kBQ = kWarps * kRows;
 constexpr int kMmaWarps = kBQ / 16;  // flash_mma: warps of 16 rows each
-constexpr int kRowWarps = 4;       // flash_row: warps per block
-constexpr int kRowMax = 4;         // longest S that takes flash_row
-constexpr int kUnroll = 4;         // flash_row: keys per step
+constexpr int kRowMax = 4;         // longest S that takes flash_decode
+// flash_decode: warps per block, 3 where each kv head serves one query
+// row (its 72 registers a thread then fit nine blocks an SM, so one wave
+// holds 1188 (b, kv head) pairs: qwen2-moe's decode at B = 64 too), 4
+// for a group of rows
+__host__ __device__ constexpr int dec_warps(int rows) {
+  return rows == 1 ? 3 : 4;
+}
+constexpr int kDecUnroll = 4;      // flash_decode: key rows a slot loads
+constexpr int kDecRows = 4;        // flash_decode: query rows a block (GQA)
+// flash_decode: waves of resident blocks a launch aims at when one wave
+// does not hold every (b, kv head) pair, and the fewest keys worth a
+// chunk
+constexpr int kDecWaves = 8;
+constexpr int kDecMinChunk = 64;
+constexpr int kMergeThreads = 64;  // flash_merge: threads per row
 
 struct Params {
   const void* q;
@@ -526,101 +555,266 @@ flash_mma(Params p) {
   }
 }
 
+// flash_decode's lane layout at head dim D: a key row is kNV 16-byte
+// vectors; kLanes lanes (a power of two, <= 32) cover it, kVPL vectors
+// a lane, so a warp load covers kSlots rows at once.
 template <int D, typename T>
-__global__ void __launch_bounds__(kRowWarps * 32)
-flash_row(Params p) {
-  constexpr int DPL = (D + 31) / 32;
-  __shared__ float s_m[kRowWarps], s_l[kRowWarps];
-  __shared__ float s_acc[kRowWarps][DPL * 32];
+struct DecodeShape {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kNV = D / kVec;
+  static constexpr int kLanes = kNV >= 32 ? 32 : kNV > 8 ? 16 : kNV > 4
+                                ? 8 : kNV > 2 ? 4 : kNV > 1 ? 2 : 1;
+  static constexpr int kVPL = (kNV + kLanes - 1) / kLanes;
+  static constexpr int kSlots = 32 / kLanes;
+  static constexpr int kE = kVPL * kVec;       // elements a lane holds
+  static_assert(D % kVec == 0, "rows are whole 16-byte vectors");
+};
+
+// A decode launch's key chunks: keys [lo, hi) are the union of what the
+// S rows see; chunk c holds [lo + c·len, min(hi, lo + (c+1)·len)).  With
+// more than one chunk, chunk c of row (b, h, i) leaves its running max
+// and sum at ml[((b·H + h)·S + i)·chunks + c][0..1] and its accumulator
+// at acc[(...)·chunks + c][0..D), merged by flash_merge.
+struct Decode {
+  int chunks, len, lo, hi;
+  float* ml;
+  float* acc;
+};
+
+// 8 bfloat16 (or 4 float) of a 16-byte vector as float32.
+__device__ __forceinline__ void unpack(const uint4& w, float* f, float) {
+  f[0] = __uint_as_float(w.x);
+  f[1] = __uint_as_float(w.y);
+  f[2] = __uint_as_float(w.z);
+  f[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack(const uint4& w, float* f,
+                                       __nv_bfloat16) {
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// One block of dec_warps(ROWS) warps per (b, kv head, group of ROWS query
+// rows, key chunk): the ROWS rows are the group's query heads × S rows
+// of kv head hk, so each K/V row is read from device memory once for
+// all of them.  Lanes hold 16-byte vectors of a key row (kLanes lanes a
+// row, kSlots rows a warp load); a warp loads kDecUnroll rows a slot
+// before it computes, so 2·kDecUnroll 16-byte loads a lane are in
+// flight; warp w takes the block's steps w, w + kWarps, ...  Each
+// slot keeps its own running state; slots, then warps (in order) are
+// merged at the end.
+template <int D, typename T, int ROWS>
+__global__ void __launch_bounds__(dec_warps(ROWS) * 32)
+flash_decode(Params p, Decode a) {
+  using S = DecodeShape<D, T>;
+  constexpr int kWarps = dec_warps(ROWS);
+  constexpr int kE = S::kE, kVec = S::kVec, kWarpKeys = S::kSlots
+                                                         * kDecUnroll;
+  __shared__ float s_ml[kWarps][ROWS][2];
+  __shared__ float s_acc[kWarps][ROWS][D];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x / p.h, h = blockIdx.x % p.h, hk = h / p.group;
-  const int row = blockIdx.y;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh
-               + row * p.q_ss;
+  const int slot = lane / S::kLanes, sub = lane % S::kLanes;
+  const int hkv = p.h / p.group, rows = p.group * p.s;
+  const int row_groups = (rows + ROWS - 1) / ROWS;
+  const int rg = blockIdx.x % row_groups;
+  const int b = blockIdx.x / row_groups / hkv;
+  const int hk = blockIdx.x / row_groups % hkv;
+  const int c_lo = a.lo + blockIdx.y * a.len;
+  const int c_hi = min(a.hi, c_lo + a.len);
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  float qv[DPL];
+  // row r of the block: query head hk·group + rr / S, row rr % S; it
+  // sees keys [lo_r, hi_r) of this chunk
+  float qv[ROWS][kE];
+  int lo_r[ROWS], hi_r[ROWS];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    qv[i] = d < D ? to_f(q[d]) * p.scale : 0.f;
+  for (int r = 0; r < ROWS; ++r) {
+    const int rr = rg * ROWS + r;
+    const bool live = rr < rows;
+    const int i = rr % p.s, h = hk * p.group + rr / p.s;
+    const int ra = i + p.q_offset;
+    const int hi = p.causal ? min(p.skv, ra + 1) : p.skv;
+    const int lo = p.window > 0 ? max(0, ra - p.window + 1) : 0;
+    lo_r[r] = live ? max(lo, c_lo) : c_hi;
+    hi_r[r] = live ? min(hi, c_hi) : c_hi;
+    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh
+                 + i * p.q_ss;
+#pragma unroll
+    for (int t = 0; t < S::kVPL; ++t) {
+      const int vec = sub + S::kLanes * t;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        qv[r][t * kVec + e] = live && vec < S::kNV
+                                  ? to_f(q[vec * kVec + e]) * p.scale
+                                  : 0.f;
+    }
   }
-  // every key of [kv_begin, kv_end) passes this row's masks
-  const int ra = row + p.q_offset;
-  const int kv_end = p.causal ? min(p.skv, ra + 1) : p.skv;
-  const int kv_begin = p.window > 0 ? max(0, ra - p.window + 1) : 0;
-  const int n = max(0, kv_end - kv_begin);
-  const int per = (n + kRowWarps - 1) / kRowWarps;
-  const int lo = kv_begin + warp * per;
-  const int hi = min(kv_end, lo + per);
 
-  float m = kNegInf, l = 0.f, acc[DPL];
+  float m[ROWS], l[ROWS], acc[ROWS][kE];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  for (int j = lo; j < hi; j += kUnroll) {
-    float s[kUnroll], vv[kUnroll][DPL];
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const bool in = j + u < hi;
-      float part = 0.f;
+    for (int e = 0; e < kE; ++e) acc[r][e] = 0.f;
+  }
+  for (int base = c_lo + warp * kWarpKeys; base < c_hi;
+       base += kWarps * kWarpKeys) {
+    uint4 kw[kDecUnroll][S::kVPL], vw[kDecUnroll][S::kVPL];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        const bool ld = in && d < D;
-        part += ld ? qv[i] * to_f(k[(j + u) * p.k_ss + d]) : 0.f;
-        vv[u][i] = ld ? to_f(v[(j + u) * p.v_ss + d]) : 0.f;
+    for (int u = 0; u < kDecUnroll; ++u) {
+      const int j = base + slot + S::kSlots * u;
+#pragma unroll
+      for (int t = 0; t < S::kVPL; ++t) {
+        const int vec = sub + S::kLanes * t;
+        const bool ld = j < c_hi && vec < S::kNV;
+        kw[u][t] = ld ? __ldg(reinterpret_cast<const uint4*>(
+                            k + j * p.k_ss + vec * kVec))
+                      : make_uint4(0, 0, 0, 0);
+        vw[u][t] = ld ? __ldg(reinterpret_cast<const uint4*>(
+                            v + j * p.v_ss + vec * kVec))
+                      : make_uint4(0, 0, 0, 0);
       }
-      s[u] = part;
     }
-    float mx = -INFINITY;
+    float s[kDecUnroll][ROWS];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      s[u] = j + u < hi ? warp_sum(s[u]) : -INFINITY;
-      mx = fmaxf(mx, s[u]);
+    for (int u = 0; u < kDecUnroll; ++u) {
+      float kf[kE];
+#pragma unroll
+      for (int t = 0; t < S::kVPL; ++t) unpack(kw[u][t], kf + t * kVec, T());
+      const int j = base + slot + S::kSlots * u;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) part += qv[r][e] * kf[e];
+#pragma unroll
+        for (int o = S::kLanes / 2; o; o >>= 1)
+          part += __shfl_xor_sync(~0u, part, o);
+        s[u][r] = j >= lo_r[r] && j < hi_r[r] ? part : -INFINITY;
+      }
     }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
+    for (int r = 0; r < ROWS; ++r) {
+      float mx = -INFINITY;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float pu = expf(s[u] - m_new);
-      l += pu;
+      for (int u = 0; u < kDecUnroll; ++u) mx = fmaxf(mx, s[u][r]);
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - m_new);
+      l[r] *= alpha;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] += pu * vv[u][i];
+      for (int e = 0; e < kE; ++e) acc[r][e] *= alpha;
+      m[r] = m_new;
     }
-    m = m_new;
+#pragma unroll
+    for (int u = 0; u < kDecUnroll; ++u) {
+      float vf[kE];
+#pragma unroll
+      for (int t = 0; t < S::kVPL; ++t) unpack(vw[u][t], vf + t * kVec, T());
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float pu = expf(s[u][r] - m[r]);
+        l[r] += pu;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[r][e] += pu * vf[e];
+      }
+    }
   }
 
-  if (lane == 0) {
-    s_m[warp] = m;
-    s_l[warp] = l;
-  }
+  // the slots of a warp (lanes kLanes apart), then the warps in order
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) s_acc[warp][lane + 32 * i] = acc[i];
+  for (int o = S::kLanes; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float m2 = __shfl_xor_sync(~0u, m[r], o);
+      const float l2 = __shfl_xor_sync(~0u, l[r], o);
+      const float mm = fmaxf(m[r], m2);
+      const float a1 = expf(m[r] - mm), a2 = expf(m2 - mm);
+      l[r] = l[r] * a1 + l2 * a2;
+#pragma unroll
+      for (int e = 0; e < kE; ++e)
+        acc[r][e] = acc[r][e] * a1
+                    + __shfl_xor_sync(~0u, acc[r][e], o) * a2;
+      m[r] = mm;
+    }
+  }
+  if (slot == 0) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (sub == 0) {
+        s_ml[warp][r][0] = m[r];
+        s_ml[warp][r][1] = l[r];
+      }
+#pragma unroll
+      for (int t = 0; t < S::kVPL; ++t) {
+        const int vec = sub + S::kLanes * t;
+        if (vec < S::kNV) {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            s_acc[warp][r][vec * kVec + e] = acc[r][t * kVec + e];
+        }
+      }
+    }
+  }
   __syncthreads();
-  if (warp) return;
-  float mm = kNegInf;
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += kWarps * 32) {
+    const int r = idx / D, d = idx % D;
+    const int rr = rg * ROWS + r;
+    if (rr >= rows) break;
+    float mm = kNegInf;
 #pragma unroll
-  for (int w = 0; w < kRowWarps; ++w) mm = fmaxf(mm, s_m[w]);
-  float ll = 0.f, scale_w[kRowWarps];
+    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, s_ml[w][r][0]);
+    float ll = 0.f, aa = 0.f;
 #pragma unroll
-  for (int w = 0; w < kRowWarps; ++w) {
-    scale_w[w] = expf(s_m[w] - mm);
-    ll += s_l[w] * scale_w[w];
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(s_ml[w][r][0] - mm);
+      ll += s_ml[w][r][1] * f;
+      aa += s_acc[w][r][d] * f;
+    }
+    const int i = rr % p.s, h = hk * p.group + rr / p.s;
+    if (a.chunks == 1) {
+      T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+      o[d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
+    } else {
+      const size_t at = (static_cast<size_t>(b * p.h + h) * p.s + i)
+                        * a.chunks + blockIdx.y;
+      a.acc[at * D + d] = aa;
+      if (d == 0) {
+        a.ml[at * 2] = mm;
+        a.ml[at * 2 + 1] = ll;
+      }
+    }
   }
+}
+
+// The chunks of each decode row merged in ascending chunk order: max of
+// the running maxima, then the sums and accumulators rescaled to it and
+// added chunk by chunk; one block a row (b, h, i).
+template <int D, typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+flash_merge(Params p, Decode a) {
+  const int row = blockIdx.x;
+  const int i = row % p.s, h = row / p.s % p.h, b = row / p.s / p.h;
+  const float* ml = a.ml + static_cast<size_t>(row) * a.chunks * 2;
+  const float* acc = a.acc + static_cast<size_t>(row) * a.chunks * D;
+  float mm = kNegInf;
+  for (int c = 0; c < a.chunks; ++c) mm = fmaxf(mm, ml[2 * c]);
+  float ll = 0.f;
+  for (int c = 0; c < a.chunks; ++c)
+    ll += ml[2 * c + 1] * expf(ml[2 * c] - mm);
   const float denom = fmaxf(ll, 1e-30f);
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss;
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + 32 * i;
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kRowWarps; ++w) a += s_acc[w][d] * scale_w[w];
-    if (d < D) o[d] = from_f<T>(a / denom);
+  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+  for (int d = threadIdx.x; d < D; d += kMergeThreads) {
+    float aa = 0.f;
+    for (int c = 0; c < a.chunks; ++c)
+      aa += acc[c * D + d] * expf(ml[2 * c] - mm);
+    o[d] = from_f<T>(aa / denom);
   }
 }
 
@@ -641,13 +835,28 @@ int launch_tile(dim3 grid, int threads, size_t smem, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A decode step: ROWS = 1 when each kv head serves one query row (the
+// serve path's multi-head attention), else groups of kDecRows rows.
+template <int D, typename T, int ROWS>
+int launch_decode(const Params& p, int batch, const Decode& a,
+                  cudaStream_t stream) {
+  const int row_groups = (p.group * p.s + ROWS - 1) / ROWS;
+  const dim3 grid(batch * (p.h / p.group) * row_groups, a.chunks);
+  flash_decode<D, T, ROWS><<<grid, dec_warps(ROWS) * 32, 0, stream>>>(p,
+                                                                     a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.chunks == 1) return static_cast<int>(err);
+  flash_merge<D, T><<<batch * p.h * p.s, kMergeThreads, 0, stream>>>(p, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, typename T>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  if (p.s <= kRowMax) {
-    flash_row<D, T><<<dim3(batch * p.h, p.s), kRowWarps * 32, 0, stream>>>(
-        p);
-    return static_cast<int>(cudaGetLastError());
-  }
+int launch(const Params& p, int batch, const Decode& a,
+           cudaStream_t stream) {
+  if (p.s <= kRowMax)
+    return p.group * p.s == 1 ? launch_decode<D, T, 1>(p, batch, a, stream)
+                              : launch_decode<D, T, kDecRows>(p, batch, a,
+                                                              stream);
   const dim3 grid(batch * p.h, (p.s + kBQ - 1) / kBQ);
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return launch_tile<flash_mma<D>>(grid, kMmaWarps * 32,
@@ -658,32 +867,119 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch(int d, const Params& p, int batch, cudaStream_t stream) {
+int dispatch(int d, const Params& p, int batch, const Decode& a,
+             cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<16, T>(p, batch, stream);
-    case 80: return launch<80, T>(p, batch, stream);
-    case 128: return launch<128, T>(p, batch, stream);
-    case 256: return launch<256, T>(p, batch, stream);
+    case 16: return launch<16, T>(p, batch, a, stream);
+    case 80: return launch<80, T>(p, batch, a, stream);
+    case 128: return launch<128, T>(p, batch, a, stream);
+    case 256: return launch<256, T>(p, batch, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The keys [lo, hi) that rows q_offset … q_offset + s − 1 see together.
+void decode_keys(int s, int skv, int causal, int window, int q_offset,
+                 int* lo, int* hi) {
+  int h = skv;
+  if (causal) h = q_offset + s < skv ? q_offset + s : skv;
+  h = h > 0 ? h : 0;
+  int l = window > 0 ? q_offset - window + 1 : 0;
+  l = l > 0 ? l : 0;
+  *hi = h;
+  *lo = l < h ? l : h;
+}
+
+// Blocks of flash_decode<D, T, ROWS> resident on card `device` at once
+// (the occupancy its registers allow, times the SMs); 0 on an error.
+template <int D, typename T, int ROWS>
+long long decode_capacity(int device) {
+  static long long cap[64] = {};
+  if (device < 0 || device >= 64) return 0;
+  if (!cap[device]) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, flash_decode<D, T, ROWS>, dec_warps(ROWS) * 32, 0)
+            != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  device) != cudaSuccess)
+      return 0;
+    cap[device] = static_cast<long long>(per_sm) * sms;
+  }
+  return cap[device];
+}
+
+template <typename T, int ROWS>
+long long decode_capacity(int d, int device) {
+  switch (d) {
+    case 16: return decode_capacity<16, T, ROWS>(device);
+    case 80: return decode_capacity<80, T, ROWS>(device);
+    case 128: return decode_capacity<128, T, ROWS>(device);
+    case 256: return decode_capacity<256, T, ROWS>(device);
+    default: return 0;
   }
 }
 
 }  // namespace
 
+// How many key chunks a decode step (s <= kRowMax) is split into, sized
+// by the card's own count of resident blocks (C): when the (b, kv head,
+// row group) blocks are fewer than C, as many chunks as fill one wave
+// without a second; when they are more, enough for kDecWaves waves, so
+// the last, partial wave is short; each chunk at least kDecMinChunk
+// keys, at most 65535.  1 for a longer s; -1 on an error.
+extern "C" int flash_decode_chunks(int batch, int h, int hkv, int s,
+                                   int skv, int d, int dtype, int causal,
+                                   int window, int q_offset, int device) {
+  if (s > kRowMax || batch <= 0 || hkv <= 0 || h % hkv) return 1;
+  int lo, hi;
+  decode_keys(s, skv, causal, window, q_offset, &lo, &hi);
+  const int rows = h / hkv * s;
+  const long long blocks = static_cast<long long>(batch) * hkv
+                           * (rows == 1 ? 1 : (rows + kDecRows - 1)
+                                                  / kDecRows);
+  const long long cap =
+      dtype == 1 ? (rows == 1 ? decode_capacity<__nv_bfloat16, 1>(d, device)
+                              : decode_capacity<__nv_bfloat16, kDecRows>(
+                                    d, device))
+                 : (rows == 1 ? decode_capacity<float, 1>(d, device)
+                              : decode_capacity<float, kDecRows>(d, device));
+  if (cap <= 0) return -1;
+  long long c = blocks <= cap ? cap / blocks
+                              : (kDecWaves * cap + blocks - 1) / blocks;
+  const long long most = (hi - lo + kDecMinChunk - 1) / kDecMinChunk;
+  c = c < most ? c : most;
+  c = c < 65535 ? c : 65535;
+  return c < 1 ? 1 : static_cast<int>(c);
+}
+
+// Floats of scratch a decode step with `chunks` chunks needs (0 for one).
+extern "C" long long flash_decode_scratch(int batch, int h, int s, int d,
+                                          int chunks) {
+  return chunks <= 1 ? 0
+                     : static_cast<long long>(batch) * h * s * chunks
+                           * (d + 2);
+}
+
 // Launch on `stream` of card `device`; returns the CUDA error code (0 =
 // ok).  `strides` holds 12 element strides: batch, head and row of q, k,
 // v and o, in that order.  dtype: 0 float32, 1 bfloat16 (all four
 // tensors).  window <= 0: no sliding window.  d is one of 16, 80, 128,
-// 256 (the wrapper checks).
+// 256 (the wrapper checks).  A decode step (s <= kRowMax) is split into
+// `chunks` key chunks (flash_decode_chunks gives the launch's own
+// count); past one, `scratch` holds flash_decode_scratch(...) floats,
+// and every row of k and v must start on 16 bytes.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int batch,
                                       int h, int hkv, int s, int skv, int d,
                                       int dtype, int causal, int window,
-                                      int q_offset, float scale,
-                                      void* stream, int device) {
+                                      int q_offset, float scale, int chunks,
+                                      float* scratch, void* stream,
+                                      int device) {
   if (batch <= 0 || h <= 0 || hkv <= 0 || h % hkv || s <= 0 || skv < 0
-      || (s > kRowMax && (s + kBQ - 1) / kBQ > 65535))
+      || (s > kRowMax && (s + kBQ - 1) / kBQ > 65535) || chunks < 1
+      || chunks > 65535 || (chunks > 1 && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -692,7 +988,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
            strides[5], strides[6], strides[7], strides[8], strides[9],
            strides[10], strides[11],
            h, h / hkv, s, skv, q_offset, window, causal, scale};
+  Decode a{chunks, 0, 0, 0, scratch,
+           chunks > 1 ? scratch + static_cast<long long>(batch) * h * s
+                                      * chunks * 2
+                      : nullptr};
+  decode_keys(s, skv, causal, window, q_offset, &a.lo, &a.hi);
+  a.len = (a.hi - a.lo + chunks - 1) / chunks;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? dispatch<__nv_bfloat16>(d, p, batch, st)
-                    : dispatch<float>(d, p, batch, st);
+  return dtype == 1 ? dispatch<__nv_bfloat16>(d, p, batch, a, st)
+                    : dispatch<float>(d, p, batch, a, st);
 }

@@ -5,7 +5,8 @@ attention with GQA (query head h reads kv head h // (H / Hkv)), causal
 and sliding-window masks and a decode offset, computed in float32 and
 returned in q's type; a row with no key gets 0.  The scale is
 1/sqrt(D) as a Python float, as the Pallas kernel and the model take
-it.  Query rows are taken in chunks, so that the (B, H, chunk, Skv)
+it, unless ``scale`` names another (a head dim zero-padded past the
+true D keeps the true D's scale).  Query rows are taken in chunks, so that the (B, H, chunk, Skv)
 score block stays near 2**28 elements on the card at full size.
 """
 import math
@@ -16,13 +17,14 @@ CHUNK_ELEMS = 1 << 28
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
-                  q_offset: int = 0):
+                  q_offset: int = 0, scale: float | None = None):
     """q (B, H, S, D); k, v (B, Hkv, Skv, D) → (B, H, S, D) in q's type.
     Row i sits at absolute position i + q_offset."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = h // hkv
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     kf = k.float()[:, :, None]                      # (B, Hkv, 1, Skv, D)
     vf = v.float()[:, :, None]
     cols = torch.arange(skv, device=q.device)

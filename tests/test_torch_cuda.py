@@ -289,24 +289,35 @@ def test_keyword_match_kernel_walks_chunks_in_groups(cuda_device, t,
     assert int(got[1].sum()) > 0
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 12, 16])
-@pytest.mark.parametrize("n,q", [(16, 5), (3000, 700), (50000, 20000)])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 12, 16, 17, 24, 32])
+@pytest.mark.parametrize("n,q", [(16, 5), (40, 5), (3000, 700),
+                                 (50000, 20000)])
 def test_knn_match_kernel_equals_plain_version(cuda_device, n, q, k):
+    """Bit for bit at every list length (past 16 the lists are 24 or 32
+    long and the first k are kept), with N below one tile and one
+    split, and at shapes the launch splits over the points (scratch)."""
+    if k > n:
+        pytest.skip(f"k={k} needs N >= k")
     rng = np.random.default_rng(n + q + k)
     pts, foci = _dev(cuda_device, rng.uniform(0, 1, (n, 2)).astype(np.float32),
                      rng.uniform(0, 1, (q, 2)).astype(np.float32))
     pts[: n // 3] = pts[n // 3: 2 * (n // 3)]       # duplicate points
-    before = KN.ops.launches
+    split = KN.ops.build()[1](n, q, k) > 0
+    assert split == (n >= 3000)
+    before, by_kernel = KN.ops.launches, dict(KN.ops.launches_by_kernel)
     got = KN.knn_match(pts, foci, k=k)
     torch.cuda.synchronize()
-    assert KN.ops.launches == before + 1
+    assert KN.ops.launches == before + 1 + split
+    assert {name: c - by_kernel[name] for name, c in
+            KN.ops.launches_by_kernel.items()} == {
+        "knn_match_kernel": 1, "knn_merge_kernel": int(split)}
     assert torch.equal(got, KN.knn_match_ref(pts, foci, k))
 
 
 def test_knn_match_rejects_k_above_its_range_on_the_card(cuda_device):
     pts = torch.zeros((40, 2), device=cuda_device)
-    with pytest.raises(ValueError, match="1 <= k <= 16"):
-        KN.knn_match(pts, pts, k=17)
+    with pytest.raises(ValueError, match="1 <= k <= 32"):
+        KN.knn_match(pts, pts, k=33)
     with pytest.raises(ValueError, match="batch of 5"):
         KN.knn_match(pts[:5], pts, k=8)
 
@@ -334,7 +345,9 @@ def test_exact_match_api_on_the_card_matches_the_numpy_plane(cuda_device):
     sm = h.sub_masks(rng.integers(0, 60, (1500, 2)))
     foci = rng.uniform(0, 1, (300, 2)).astype(np.float32)
     card, ref = T.TorchPlane("cuda"), T.NumpyPlane()
-    before = (SM.ops.launches, KM.ops.launches, KN.ops.launches)
+    knn_calls = KN.ops.launches_by_kernel               # one a call
+    before = (SM.ops.launches, KM.ops.launches,
+              knn_calls["knn_match_kernel"])
     for a, b in zip(card.match_counts(pts, rects),
                     ref.match_counts(pts, rects)):
         np.testing.assert_array_equal(a, b)
@@ -343,8 +356,8 @@ def test_exact_match_api_on_the_card_matches_the_numpy_plane(cuda_device):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(card.knn_distances(pts, foci, k=8),
                                   ref.knn_distances(pts, foci, k=8))
-    assert (SM.ops.launches, KM.ops.launches, KN.ops.launches) == tuple(
-        x + 1 for x in before)
+    assert (SM.ops.launches, KM.ops.launches,
+            knn_calls["knn_match_kernel"]) == tuple(x + 1 for x in before)
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +487,33 @@ def _qkv(seed, b, h, hkv, s, skv, d, dtype, device):
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
+def _launched(FA, fn):
+    """``fn()``'s result and the K6 kernels it launched, by kernel (the
+    total count moves by as many)."""
+    before, by_kernel = FA.ops.launches, dict(FA.ops.launches_by_kernel)
+    out = fn()
+    got = {name: c - by_kernel[name]
+           for name, c in FA.ops.launches_by_kernel.items()
+           if c != by_kernel[name]}
+    assert FA.ops.launches - before == sum(got.values())
+    return out, got
+
+
+def _kernels_for(FA, q, k, **kw):
+    """The K6 kernels one call on q, k launches: the tensor-core or tile
+    kernel past ROW_MAX rows, else the decode kernel and, where the
+    library cuts the keys into chunks, the merge."""
+    if q.shape[2] > FA.ops.ROW_MAX:
+        return {"flash_mma" if q.dtype == torch.bfloat16 else "flash_tile": 1}
+    chunks = FA.ops.decode_chunks(FA.ops.build(), q, k, **kw)
+    return {"flash_decode": 1, **({"flash_merge": 1} if chunks > 1 else {})}
+
+
+def _calls(FA):
+    """K6 calls that launched: every launch but a decode step's merge."""
+    return FA.ops.launches - FA.ops.launches_by_kernel["flash_merge"]
+
+
 def _within_bf16_steps(got, want):
     """Each bfloat16 output within two bfloat16 steps at its plain value
     plus the float32 tolerance: K6 and its plain version both sum in
@@ -521,10 +561,9 @@ def test_flash_attention_kernel_equals_plain_version(
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _qkv(s + skv + d, b, h, hkv, s, skv, d, dtype, cuda_device)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    before = FA.ops.launches
-    got = FA.flash_attention(q, k, v, **kw)
+    got, launched = _launched(FA, lambda: FA.flash_attention(q, k, v, **kw))
     torch.cuda.synchronize()
-    assert FA.ops.launches == before + 1
+    assert launched == _kernels_for(FA, q, k, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     want = FA.attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
@@ -576,12 +615,90 @@ def test_flash_attention_rejects_misaligned_bf16_rows(cuda_device):
                                    atol=ATTN_TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("d", [12, 32])
-def test_flash_attention_rejects_an_unbuilt_head_dim(cuda_device, d):
+@pytest.mark.parametrize("d", [12, 32, 64])
+def test_flash_attention_pads_an_unbuilt_head_dim(cuda_device, d):
+    """A D the kernels are not built for is no longer refused (ROADMAP
+    F5): it is zero-padded to the next built width at the true scale
+    and matches the plain version, prefill and decode, both types; only
+    D past 256 raises."""
     from repro_torch.kernels import flash_attention as FA
-    q, k, v = _qkv(0, 1, 2, 2, 8, 8, d, torch.float32, cuda_device)
-    with pytest.raises(ValueError, match=f"head dim {d}"):
+    for dtype in (torch.float32, torch.bfloat16):
+        for s, skv, off in ((40, 40, 0), (1, 40, 39), (3, 40, 30)):
+            q, k, v = _qkv(d + s, 2, 4, 2, s, skv, d, dtype, cuda_device)
+            got = FA.flash_attention(q, k, v, q_offset=off)
+            want = FA.attention_ref(q, k, v, q_offset=off)
+            torch.cuda.synchronize()
+            assert got.shape == q.shape and got.stride() == q.stride()
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=ATTN_TOL[dtype])
+            if dtype == torch.bfloat16:
+                assert _within_bf16_steps(got, want)
+    q, k, v = _qkv(0, 1, 2, 2, 8, 8, 264, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="D up to 256"):
         FA.flash_attention(q, k, v)
+
+
+# (b, h, hkv, s, skv, d, window, q_offset, chunked): the decode kernel
+# at the serve path's batch (50) and phase k6's small ones (1, 4), GQA
+# group 4, a window, mid-cache offsets, S = 1, 2 and 4, at the library's
+# own chunk count: one where the rows see at most 64 keys (False), many
+# for few (b, kv head) blocks (True), the card's occupancy's choice at
+# the serve input (None)
+DECODE_CASES = [
+    (50, 16, 16, 1, 1056, 128, None, 1054, None),
+    (50, 16, 16, 1, 1056, 128, None, 527, None),
+    (50, 16, 16, 1, 64, 128, None, 63, False),
+    (4, 32, 8, 1, 8192, 80, 4096, 8191, True),
+    (4, 32, 8, 1, 8192, 80, 64, 5000, False),
+    (4, 16, 4, 4, 300, 128, 60, 150, False),
+    (4, 16, 4, 4, 300, 128, 100, 150, True),
+    (1, 4, 1, 4, 2000, 256, None, 1996, True),
+    (1, 4, 1, 1, 2000, 256, None, 700, True),
+    (4, 8, 2, 1, 600, 16, None, 300, True),
+    (1, 32, 8, 2, 64, 80, 10, 62, False),
+    (4, 16, 16, 4, 70, 128, None, 66, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,skv,d,window,q_offset,chunked",
+                         DECODE_CASES)
+def test_flash_decode_kernel_equals_plain_version(
+        cuda_device, dtype, b, h, hkv, s, skv, d, window, q_offset, chunked):
+    """The flash-decoding kernel (S <= 4) against the plain version at
+    the JAX package's tolerances, at chunk counts of one and many (the
+    merge launched only for many), and the same bits on a second call
+    (the chunks merge in a fixed order)."""
+    from repro_torch.kernels import flash_attention as FA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(s + skv + d, b, h, hkv, s, skv, d, dtype, cuda_device)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    chunks = FA.ops.decode_chunks(FA.ops.build(), q, k, **kw)
+    assert chunked is None or (chunks > 1) == chunked
+    got, launched = _launched(FA, lambda: FA.flash_attention(q, k, v, **kw))
+    again = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launched == _kernels_for(FA, q, k, **kw)
+    assert ("flash_merge" in launched) == (chunks > 1)
+    assert torch.equal(got, again)
+    want = FA.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert _within_bf16_steps(got, want)
+
+
+def test_flash_decode_copies_misaligned_kv_rows(cuda_device):
+    """A decode step's k and v views whose rows are off 16 bytes are
+    copied for the kernel's 16-byte loads, and give the plain result."""
+    from repro_torch.kernels import flash_attention as FA
+    wide = _qkv(9, 2, 4, 2, 1, 50, 130, torch.bfloat16, cuda_device)
+    q = wide[0][..., 1:129]
+    k, v = (t[..., 1:129] for t in wide[1:])
+    got = FA.flash_attention(q, k, v, q_offset=49)
+    want = FA.attention_ref(q, k, v, q_offset=49)
+    torch.cuda.synchronize()
+    assert _within_bf16_steps(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -596,10 +713,10 @@ def _to(params, device):
     return params.to(device)
 
 
-# starcoder2's smoke config has head dim 12, for which K6 is not built
+# starcoder2's smoke config has head dim 12: K6 pads it to 16
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "h2o_danube_1_8b",
                                   "gemma_7b", "qwen2_moe_a2_7b",
-                                  "deepseek_moe_16b"])
+                                  "deepseek_moe_16b", "starcoder2_7b"])
 def test_smoke_model_on_the_card_matches_the_cpu_in_float32(cuda_device,
                                                               arch):
     """Prefill and two decode steps through K5 and K6 on the card give
@@ -617,7 +734,7 @@ def test_smoke_model_on_the_card_matches_the_cpu_in_float32(cuda_device,
     card = _to(cpu, cuda_device)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 20)).astype(np.int32))
-    before = (FA.ops.launches, MH.ops.launches)
+    before = (_calls(FA), MH.ops.launches)
     outs = []
     for params, dev in ((cpu, "cpu"), (card, cuda_device)):
         logits, cache, _ = prefill(params, cfg, token_ids=toks[:, :18].to(dev),
@@ -630,7 +747,7 @@ def test_smoke_model_on_the_card_matches_the_cpu_in_float32(cuda_device,
         outs.append(got)
     torch.cuda.synchronize()
     n_moe = cfg.num_layers if cfg.moe else 0
-    assert (FA.ops.launches, MH.ops.launches) == (
+    assert (_calls(FA), MH.ops.launches) == (
         before[0] + 3 * cfg.num_layers, before[1] + 3 * n_moe)
     for a, b in zip(*outs):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
@@ -665,11 +782,10 @@ def test_two_layer_full_width_prefill_and_decode_on_the_card(cuda_device):
             outs.append(logits)
         return outs
 
-    before = (FA.ops.launches, MH.ops.launches)
+    before = (_calls(FA), MH.ops.launches)
     kern = run()
     torch.cuda.synchronize()
-    assert (FA.ops.launches, MH.ops.launches) == (before[0] + 6,
-                                                  before[1] + 6)
+    assert (_calls(FA), MH.ops.launches) == (before[0] + 6, before[1] + 6)
     saved = L.flash_attention, MOE.moe_histogram
     L.flash_attention = FA.attention_ref
     MOE.moe_histogram = lambda i, g, *, num_experts: MH.moe_histogram_ref(

@@ -126,6 +126,76 @@ def test_attention_wrapper_rejects_bad_inputs():
         FA.flash_attention(q, k, v, window=0)
 
 
+DECODE_CASES = [
+    # (b, h, hkv, s, skv, d, window, q_offset): decode steps, S <= 4
+    (2, 4, 2, 1, 50, 16, None, 20),
+    (1, 4, 1, 3, 70, 80, 24, 40),
+    (2, 8, 2, 4, 96, 32, None, 92),
+    (3, 16, 16, 1, 300, 128, None, 299),
+    (1, 8, 2, 1, 200, 80, 64, 199),
+    (2, 2, 2, 2, 9, 16, None, 3),
+]
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 7])
+@pytest.mark.parametrize("b,h,hkv,s,skv,d,window,q_offset", DECODE_CASES)
+def test_decode_chunks_merged_in_order_match_jax(b, h, hkv, s, skv, d,
+                                                 window, q_offset, chunks):
+    """K6's decode rule (``decode.py``, the merge ``flash_merge`` runs):
+    the keys cut into chunks, each chunk's float32 (m, l, acc), merged in
+    ascending chunk order, gives the JAX package's reference at 2e-5,
+    short and empty chunks and rows that see no key included."""
+    from repro_torch.kernels.flash_attention import decode
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(s + skv + d, b, h, hkv, s, skv,
+                                            d), "float32")
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    want = _f32(j_attention_ref(jq, jk, jv, **kw))
+    got = decode.attention_by_chunks(tq, tk, tv, chunks, **kw)
+    np.testing.assert_allclose(_f32(got), want, rtol=0, atol=TOL["float32"])
+    m, l, acc = decode.chunk_partials(tq, tk, tv, chunks, **kw)
+    assert m.shape == l.shape == (b, h, s, chunks)
+    assert acc.shape == (b, h, s, chunks, d)
+
+
+def test_decode_rows_that_see_no_key_give_zero():
+    from repro_torch.kernels.flash_attention import decode
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 2, 2, 4, 8, 16))
+    out = decode.attention_by_chunks(q, k, v, 3, q_offset=-2)
+    assert torch.equal(out[:, :, :2], torch.zeros_like(out[:, :, :2]))
+    torch.testing.assert_close(out, FA.attention_ref(q, k, v, q_offset=-2),
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("d,width", [(12, 16), (32, 80), (64, 80),
+                                     (100, 128), (200, 256)])
+def test_unbuilt_head_dim_is_padded_at_the_true_scale(d, width):
+    """ROADMAP F5: a D the kernel is not built for is zero-padded to the
+    next built width and scaled by the true 1/sqrt(D); through the plain
+    version that gives the unpadded result (rtol 1e-6) and the JAX
+    reference (2e-5)."""
+    assert FA.ops.padded_head_dim(d) == width
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(d, 2, 4, 2, 6, 9, d), "float32")
+    padded = [FA.ops.pad_head_dim(t, width) for t in (tq, tk, tv)]
+    assert all(t.shape[-1] == width and t.is_contiguous() for t in padded)
+    assert all(bool((t[..., d:] == 0).all()) for t in padded)
+    kw = dict(causal=True, q_offset=3)
+    got = FA.attention_ref(*padded, scale=1.0 / math.sqrt(d), **kw)
+    assert bool((got[..., d:] == 0).all())
+    torch.testing.assert_close(got[..., :d], FA.attention_ref(tq, tk, tv,
+                                                              **kw),
+                               rtol=1e-6, atol=0)
+    np.testing.assert_allclose(_f32(got[..., :d]),
+                               _f32(j_attention_ref(jq, jk, jv, **kw)),
+                               rtol=0, atol=TOL["float32"])
+
+
+def test_head_dim_past_256_raises():
+    assert [FA.ops.padded_head_dim(d) for d in FA.HEAD_DIMS] == list(
+        FA.HEAD_DIMS)
+    with pytest.raises(ValueError, match="D up to 256"):
+        FA.ops.padded_head_dim(257)
+
+
 # ---------------------------------------------------------------------------
 # the arithmetic of K6's bf16 tensor-core kernel (flash_mma), emulated
 # ---------------------------------------------------------------------------

@@ -260,8 +260,7 @@ def test_knn_match_chunks_the_foci(monkeypatch):
     assert torch.equal(KN.knn_match_ref(pts, foci, 5), whole)
 
 
-@pytest.mark.parametrize("n,k,match", [(20, 17, r"1 <= k <= 16"),
-                                       (20, 0, r"1 <= k <= 16"),
+@pytest.mark.parametrize("n,k,match", [(20, 0, r"k >= 1"),
                                        (7, 8, "batch of 7")])
 def test_knn_match_rejects_k_outside_its_range(n, k, match):
     pts = _t(np.zeros((n, 2)))
@@ -269,6 +268,78 @@ def test_knn_match_rejects_k_outside_its_range(n, k, match):
         KN.knn_match(pts, _t(np.zeros((3, 2))), k=k)
     with pytest.raises(ValueError, match=match):
         CPU.knn_distances(np.zeros((n, 2)), np.zeros((3, 2)), k=k)
+
+
+def _knn_inputs(seed, n, q):
+    """Seeded points with a third of them repeated (duplicates) and foci."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    pts[: n // 3] = pts[n // 3: 2 * (n // 3)]
+    return pts, rng.uniform(0, 1, (q, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("k", [17, 32])
+def test_knn_match_past_16_matches_the_jax_reference(k):
+    """Past the old card cap of 16 (ROADMAP F4): the wrapper and
+    ``TorchPlane("cpu")`` answer for any k <= N, equal to the JAX
+    package's reference (both round each product, then the sum) and to
+    both NumPy planes."""
+    pts, foci = _knn_inputs(k, 300, 40)
+    want = np.asarray(j_knn_ref(jnp.asarray(pts), jnp.asarray(foci), k))
+    got = KN.knn_match(_t(pts), _t(foci), k=k).numpy()
+    plane = CPU.knn_distances(pts, foci, k=k)
+    assert got.shape == (40, k) and (np.diff(got, axis=1) >= 0).all()
+    np.testing.assert_array_equal(plane, got)
+    np.testing.assert_array_equal(got, want)
+    for numpy_plane in (J.NumpyPlane(), T.NumpyPlane()):
+        np.testing.assert_array_equal(
+            got, numpy_plane.knn_distances(pts, foci, k=k))
+
+
+def test_knn_variants_edit_the_shipped_kernel():
+    """Each source edit of K4's timing script (run on a card) replaces
+    text that the shipped source holds once."""
+    from repro_torch.kernels.knn_match import variants
+    with open(KN.ops.SOURCE) as f:
+        text = f.read()
+    for name, (_, _, edits) in variants.VARIANTS.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, (name, old)
+
+
+def test_knn_spatial_order_is_a_permutation_in_morton_order():
+    """The order the card kernel takes the foci in (any order gives the
+    same distances): a permutation, int64, whose first quarter lies in
+    the bounding box's lower-left quadrant, as a Z curve does; a NaN
+    focus or a single one still gives a permutation."""
+    rng = np.random.default_rng(5)
+    foci = _t(rng.uniform(-3, 5, (1000, 2)))
+    order = KN.ops.spatial_order(foci)
+    assert order.dtype == torch.int64
+    assert sorted(order.tolist()) == list(range(1000))
+    lo, hi = foci.amin(0), foci.amax(0)
+    mid = (lo + hi) / 2
+    first = foci[order[:200]]
+    assert bool(((first <= mid + (hi - lo) / 1023).all()))
+    odd = _t([[np.nan, 0.0], [1.0, 1.0], [0.0, 0.0]])
+    assert sorted(KN.ops.spatial_order(odd).tolist()) == [0, 1, 2]
+    assert KN.ops.spatial_order(_t(np.zeros((1, 2)))).tolist() == [0]
+
+
+@pytest.mark.parametrize("n,q,k,splits", [(300, 40, 8, 1), (300, 40, 8, 4),
+                                          (1000, 17, 3, 7), (257, 9, 16, 2),
+                                          (40, 5, 17, 3), (100, 12, 32, 5),
+                                          (33, 6, 20, 4)])
+def test_knn_split_then_merge_equals_the_whole(n, q, k, splits):
+    """The kernel's split-then-merge, written out in plain torch, equals
+    the plain version bit for bit (duplicates kept, short splits padded
+    with +inf) and the JAX reference at its tolerance."""
+    pts, foci = _knn_inputs(n + k, n, q)
+    got = KN.knn_match_split_ref(_t(pts), _t(foci), k, splits)
+    assert torch.equal(got, KN.knn_match_ref(_t(pts), _t(foci), k))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(j_knn_ref(jnp.asarray(pts),
+                                          jnp.asarray(foci), k)), **KNN_TOL)
 
 
 # ---------------------------------------------------------------------------
