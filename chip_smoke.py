@@ -33,7 +33,18 @@ paths at realistic sizes:
   prefill and decode calls under ``torch.profiler`` (phase
   ``serve_profile``); then (phase ``serve_check``) two layers at full
   width, the kernel path against the plain path and decode against a
-  full forward.
+  full forward;
+- the training path (phase ``train``): ``repro_torch.launch.train``'s
+  ``Trainer`` on internlm2-1.8b at full width and depth (24 layers,
+  float32 masters and AdamW state, bf16 compute, batch 4 × 2048, remat
+  ``dots_no_batch``) for 8 steps, every attention weight's gradient
+  checked finite and non-zero (F6), a checkpoint, two profiled steps, a
+  restore and the same two steps again; then (phase ``train_check``)
+  two layers at full width in float32, a step on the card against the
+  same step on the CPU and K6's backward against the reference
+  attention's at one layer's shape; and (phase ``train_moe``)
+  qwen2-moe-a2.7b at full width with its depth cut to 4 layers, K5
+  twice a MoE layer a step, its counts exact.
 
 K5 is also held bit for bit to its written-out float32 sum order
 (``kernels/moe_histogram/order.py``) and timed beside an empty kernel,
@@ -109,6 +120,21 @@ K3_Q, K3_T = (65536, PS_SUBS), (32, 4096)
 LM_ARCH = "qwen2_moe_a2_7b"
 LM_SESSIONS, LM_REPLICAS, LM_PROMPT, LM_STEPS = 256, 4, 1024, 32
 CHECK_BATCH, CHECK_PROMPT = 2, 128      # phase serve_check, two layers
+# the training path (PERF.md §4): internlm2-1.8b at full width and depth,
+# batch × seq, TRAIN_STEPS steps, a checkpoint, TRAIN_RESUME steps on, a
+# restore and the same steps again; phase train_check cuts its depth to
+# two layers in float32; phase train_moe runs qwen2-moe-a2.7b at full
+# width, depth cut to MOE_TRAIN_LAYERS
+TRAIN_ARCH = "internlm2_1_8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_REMAT = 4, 2048, "dots_no_batch"
+TRAIN_STEPS, TRAIN_RESUME = 8, 2
+TRAIN_LR = 3e-4               # AdamWConfig's default rate
+LAUNCHER_STEPS = 6            # as the launcher runs them, data drawn inline
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
+    4, 4, 1024, 4
+MOE_EP_SHARDS = 6             # the largest divisor of 60 experts up to 8
+CKPT_DIR = "_train_ckpt"      # under the checkout (gitignored), removed after
 # phase k5: (assignments T, top-k K, experts E)
 K5_SHAPES = ((256, 4, 60), (65536, 4, 60), (65536, 6, 64))
 # phase k6: (case, B, H, Hkv, S, Skv, D, type, window, q_offset)
@@ -128,6 +154,7 @@ K6_CASES = (
      1055),
     ("h2o-danube decode f32", 4, 32, 8, 1, 8192, 80, "float32", 4096, 8191),
     ("h2o-danube decode", 4, 32, 8, 1, 8192, 80, "bfloat16", 4096, 8191),
+    ("internlm2 train", 4, 16, 8, 2048, 2048, 128, "bfloat16", None, 0),
 )
 
 # the TPU kernel each CUDA kernel replaces
@@ -1556,6 +1583,489 @@ def phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs,
     return out
 
 
+# ---------------------------------------------------------------------------
+# training (PERF.md §4): internlm2-1.8b at full width and depth through the
+# launcher's Trainer; a 2-layer float32 step against the CPU; qwen2-moe at
+# full width, depth cut, through K5
+# ---------------------------------------------------------------------------
+
+def _free_card(torch) -> int:
+    """Drop what earlier phases left (collected cycles, cached blocks)
+    and restart the peak; returns the bytes still allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _quiet_data(run) -> None:
+    """Wait until the trainer's prefetch thread has filled its queue and
+    blocks, so that its NumPy loop no longer competes with the steps for
+    the interpreter."""
+    while not run.data.q.full():
+        time.sleep(0.05)
+
+
+def _tree_leaves(tree) -> list:
+    from repro_torch import tree as TR
+    return TR.leaves(tree)
+
+
+def _k6_split(kern) -> dict:
+    return read_by_kernel(kern)["flash_attention"]
+
+
+def _profile_steps(torch, run, batches) -> dict:
+    """Device busy seconds against the host wall over ``batches`` train
+    steps under ``torch.profiler``, device seconds by kind (K6, K5,
+    float32 and bf16 products, copies, elementwise, reductions), the
+    device events counted (``kernel_launches``, memcpys included), the
+    host's self seconds by op, and the steps' losses."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses = [float(run.step(b)["loss"]) for b in batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    t = lambda e: e.self_device_time_total / 1e6  # noqa: E731
+    busy = sum(map(t, dev))
+    check(busy > 0, "train: no device time recorded under the profiler")
+
+    # device seconds by kind, each kernel in the first kind it matches
+    kinds = (("k6_s", ("flash_mma", "flash_tile")),
+             ("k5_s", ("moe_histogram",)),
+             ("f32_gemm_s", ("sgemm", "f32f32")),     # the attention twin
+             ("gemm_s", ("nvjet", "gemm", "Gemm")),   # bf16 products
+             ("copy_s", ("copy", "Memcpy")),          # casts, copies
+             ("elementwise_s", ("elementwise",)),
+             ("reduce_s", ("reduce", "softmax", "Softmax")))
+    by_kind = dict.fromkeys([k for k, _ in kinds] + ["other_s"], 0.0)
+    for e in dev:
+        kind = next((k for k, subs in kinds
+                     if any(x in e.key for x in subs)), "other_s")
+        by_kind[kind] += t(e)
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU]
+    h = lambda e: e.self_cpu_time_total / 1e6  # noqa: E731
+    return {"steps": len(batches), "wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall, **by_kind,
+            "kernel_launches": sum(e.count for e in dev),
+            "top_device_ops": [[e.key[:96], t(e), e.count] for e in
+                               sorted(dev, key=t, reverse=True)[:12]],
+            "host_self_s": sum(map(h, host)),
+            "top_host_ops": [[e.key[:64], h(e), e.count] for e in
+                             sorted(host, key=h, reverse=True)[:12]],
+            "losses": losses}
+
+
+def phase_train(torch, kern, LT, M, configs, device) -> dict:
+    """The training path at full width and depth (PERF.md §4):
+    internlm2-1.8b (24 layers, d_model 2048, 16/8 heads, d_ff 8192,
+    vocab 92 544) through ``launch.train.Trainer`` with float32 masters
+    and AdamW state, bfloat16 compute, batch TRAIN_BATCH × TRAIN_SEQ,
+    remat ``dots_no_batch``.  The phase's batches are drawn from the
+    trainer's stream first (their host seconds reported); then
+    TRAIN_STEPS steps (the counts read over them), an F6 guard (every
+    layer's attention weights get a finite, non-zero gradient; K6's
+    launches split into the forward and the backward's recompute), a
+    checkpoint, two more steps under
+    ``torch.profiler`` (the card's busy share), a restore (bit-identical
+    to what was saved, ``count`` equal to the step) and the same two
+    steps again (losses against the continuous run's within 1e-3
+    relative); last, LAUNCHER_STEPS steps as the launcher's loop runs
+    them, each drawing its batch from the stream.  MFU: ``launch.analytic``'s FLOPs at this shape and remat
+    over the median step time and BF16_OPS_PER_S."""
+    import shutil
+    from repro_torch.launch.analytic import analytic_cost
+    cfg = configs.get_config(TRAIN_ARCH)
+    check(cfg.num_layers == 24 and cfg.d_model == 2048
+          and cfg.vocab_size == 92544,
+          "train: not internlm2-1.8b at full width and depth")
+    at_start = _free_card(torch)
+    t0 = time.perf_counter()
+    run = LT.Trainer(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=TRAIN_STEPS + TRAIN_RESUME, lr=TRAIN_LR,
+                     remat=TRAIN_REMAT, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in _tree_leaves(run.params))
+    check(all(p.dtype == torch.float32 for p in _tree_leaves(run.params)),
+          "train: the masters are not float32")
+    # every batch of the phase first (the synthetic stream makes one in
+    # about 1.9 s of host NumPy, slower than a step), then the steps with
+    # the producer thread idle
+    data_s, batches = [], []
+    for _ in range(TRAIN_STEPS + 1 + TRAIN_RESUME):
+        t0 = time.perf_counter()
+        batches.append(run.next_batch())
+        data_s.append(time.perf_counter() - t0)
+    _quiet_data(run)
+    step_s, losses, per_step = [], [], []
+    reset_launches(kern)                      # counts from here …
+    for batch in batches[:TRAIN_STEPS]:
+        before = _k6_split(kern)["flash_mma"]
+        t0 = time.perf_counter()
+        m = run.step(batch)
+        losses.append(float(m["loss"]))       # drains the card
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(_k6_split(kern)["flash_mma"] - before)
+    launches = read_launches(kern)            # … to here
+    by_kernel = read_by_kernel(kern)
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(launches["flash_attention"] == 2 * layers * TRAIN_STEPS
+          and by_kernel["flash_attention"]["flash_mma"]
+          == 2 * layers * TRAIN_STEPS and launches["moe_histogram"] == 0,
+          f"train: launches {launches} ({by_kernel}); {2 * layers} "
+          f"flash_mma a step expected (forward and recompute)")
+    check(all(launches[n] == 0 for n in ("stats_update", "spatial_match",
+                                         "keyword_match", "knn_match")),
+          f"train: launches {launches}")
+
+    # F6's guard: the step's loss and gradient, forward and backward apart
+    batch = batches[TRAIN_STEPS]
+    leaves = _tree_leaves(run.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    reset_launches(kern)
+    loss, _ = M.loss_fn(run.params, cfg, batch, remat=TRAIN_REMAT)
+    fwd = _k6_split(kern)
+    grads = torch.autograd.grad(loss, leaves)
+    recompute = {k: v - fwd[k] for k, v in _k6_split(kern).items()}
+    for p in leaves:
+        p.requires_grad_(False)
+    from repro_torch import tree as TR
+    grads = TR.unflatten(run.params, grads)
+    attn = {w: [float(g["attn"][w].float().abs().max())
+                for g in grads["layers"]] for w in ("wq", "wk", "wv", "wo")}
+    finite = all(bool(torch.isfinite(g["attn"][w]).all())
+                 for g in grads["layers"] for w in attn)
+    check(finite and all(x > 0 for xs in attn.values() for x in xs),
+          f"train: an attention weight's gradient is zero or not finite "
+          f"(F6): {attn}")
+    check(fwd["flash_mma"] == layers and recompute["flash_mma"] == layers,
+          f"train: K6 launched {fwd} forward and {recompute} in the "
+          f"backward, {layers} flash_mma each expected")
+    del grads, loss
+    torch.cuda.empty_cache()
+
+    # checkpoint, two steps on, restore, the same two steps again
+    batches = batches[TRAIN_STEPS + 1:]
+    ckpt = os.path.join(ROOT, CKPT_DIR)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        saved = [t.detach().to("cpu", copy=True)
+                 for t in _tree_leaves((run.params, run.opt))]
+        t0 = time.perf_counter()
+        run.save(ckpt, TRAIN_STEPS)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(
+            ckpt, f"step_{TRAIN_STEPS:08d}", "arrays.npz"))
+        prof = _profile_steps(torch, run, batches)
+        continuous = prof.pop("losses")
+        t0 = time.perf_counter()
+        step = run.restore(ckpt, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored = _tree_leaves((run.params, run.opt))
+        identical = len(restored) == len(saved) and all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b)
+            for a, b in zip(restored, saved))
+        del saved, restored
+        check(step == TRAIN_STEPS and identical
+              and int(run.opt["count"]) == TRAIN_STEPS,
+              f"train: the restored state differs from the saved one "
+              f"(step {step}, count {int(run.opt['count'])})")
+        resumed, resumed_s = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            resumed.append(float(run.step(b)["loss"]))
+            resumed_s.append(time.perf_counter() - t0)
+        # the launcher's own loop: each step draws the stream's next
+        # batch while the producer thread makes the one after
+        launcher_s = []
+        for _ in range(LAUNCHER_STEPS):
+            t0 = time.perf_counter()
+            float(run.step()["loss"])
+            launcher_s.append(time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        run.close()
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, continuous)]
+    check(max(rel) <= 1e-3, f"train: resumed losses {resumed} against the "
+          f"continuous run's {continuous}")
+    del run, batches, batch
+    torch.cuda.empty_cache()
+
+    med = statistics.median(step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    cost = analytic_cost(cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
+                         remat=TRAIN_REMAT)
+    out = {"phase": "train", "arch": TRAIN_ARCH, "model": cfg.name,
+           "layers": layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "params": n_params,
+           "allocated_at_start": at_start,
+           "masters": "float32", "compute": cfg.dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": TRAIN_REMAT,
+           "steps": TRAIN_STEPS, "init_s": init_s, "step_s": step_s,
+           "step_s_median": med, "tokens_per_s": tokens / med,
+           "data_s": data_s,
+           "analytic_flops": cost["flops"],
+           "remat_factor": cost["remat_factor"],
+           "mfu": cost["flops"] / med / BF16_OPS_PER_S,
+           "max_memory_allocated": peak, "losses": losses,
+           "launches": launches, "launches_by_kernel": by_kernel,
+           "k6_flash_mma_per_step": per_step,
+           "k6_forward": fwd, "k6_recompute": recompute,
+           "attn_grad_max_abs": {w: [min(x), max(x)]
+                                 for w, x in attn.items()},
+           "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+           "restore_s": restore_s, "restored_bit_identical": identical,
+           "continuous_losses": continuous, "resumed_losses": resumed,
+           "resumed_step_s": resumed_s, "launcher_step_s": launcher_s,
+           # past the two batches the prefetch queue held
+           "launcher_tokens_per_s": tokens / statistics.median(
+               launcher_s[2:]),
+           "resume_rel_diff": rel,
+           "resume_bit_identical": resumed == continuous,
+           "profile": prof}
+    emit(out)
+    return out
+
+
+def phase_train_check(torch, kern, FA, L, M, T, configs, device) -> dict:
+    """internlm2-1.8b at full width cut to TRAIN_CHECK_LAYERS layers,
+    float32: one train step on the card against the same step on the CPU
+    from the same params and batch (loss within 1e-4, grad norm within
+    1e-3 relative); then, at one full-width layer's shape (TRAIN_BATCH,
+    16 heads, TRAIN_SEQ, 128; 8 kv heads), bfloat16, causal: K6's
+    forward through ``FlashAttentionFn`` (grad enabled, one flash_mma)
+    against ``attention_ref`` at K6's tolerance (:func:`k6_check`), and
+    the backward's recompute (``layers.sdpa_grad``) — dq, dk, dv —
+    against autograd through ``layers._sdpa_chunked`` on the card
+    (within 4 bf16 steps at the largest |gradient|; the backward reads
+    no kernel output, so this holds the recompute, not the kernel),
+    timed beside SDPA's forward and backward."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.data import make_batch_iterator
+    full = configs.get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_CHECK_LAYERS,
+                              dtype="float32")
+    out = {"phase": "train_check", "arch": TRAIN_ARCH,
+           "layers": TRAIN_CHECK_LAYERS, "d_model": cfg.d_model,
+           "cut": f"depth 24 -> {TRAIN_CHECK_LAYERS}, float32",
+           "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_CHECK_SEQ}
+    cpu = M.init_params(cfg, 1, device="cpu", dtype=torch.float32)
+    b = next(make_batch_iterator(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                                 seed=2))
+    step = T.make_train_step(cfg, T.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                total_steps=4))
+    res = {}
+    with tf32(torch, False):
+        for dev in ("cpu", device):     # the step updates its copy in place
+            params = _tree_to(cpu, dev)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            reset_launches(kern)
+            _, _, m = step(params, T.init_opt_state(params), batch)
+            res[str(dev)] = {"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "k6": _k6_split(kern)}
+            del params, batch, m
+    c, g = res["cpu"], res[str(device)]
+    loss_err = abs(c["loss"] - g["loss"])
+    gn_rel = abs(c["grad_norm"] - g["grad_norm"]) / c["grad_norm"]
+    check(loss_err <= 1e-4 and gn_rel <= 1e-3,
+          f"train_check: card {g} against cpu {c}")
+    check(g["k6"]["flash_tile"] == 2 * TRAIN_CHECK_LAYERS
+          and c["k6"]["flash_tile"] == 0,
+          f"train_check: K6 launches {g['k6']}")
+    out.update(cpu=c, card=g, loss_abs_err=loss_err, loss_tol=1e-4,
+               grad_norm_rel_err=gn_rel, grad_norm_tol=1e-3)
+    del cpu
+    torch.cuda.empty_cache()
+
+    # K6's backward at one full-width layer's shape
+    h, hkv, d = full.num_heads, full.num_kv_heads, full.resolved_head_dim
+    gen = torch.Generator(device=device).manual_seed(11)
+    q, k, v, go = (torch.randn(shape, generator=gen, device=device
+                               ).to(torch.bfloat16)
+                   for shape in ((TRAIN_BATCH, h, TRAIN_SEQ, d),
+                                 (TRAIN_BATCH, hkv, TRAIN_SEQ, d),
+                                 (TRAIN_BATCH, hkv, TRAIN_SEQ, d),
+                                 (TRAIN_BATCH, h, TRAIN_SEQ, d)))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+
+    def k6_fwd_bwd():
+        o = FA.flash_attention(q, k, v, causal=True)
+        return torch.autograd.grad(o, (q, k, v), go)
+
+    def twin_fwd_bwd():
+        o = L._sdpa_chunked(*(t.transpose(1, 2) for t in (q, k, v)),
+                            causal=True, window=None, q_offset=0)
+        return torch.autograd.grad(o.transpose(1, 2), (q, k, v), go)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (q, k, v), go)
+
+    # the forward a train step takes (through FlashAttentionFn, grad
+    # enabled) against the plain version, at K6's bf16 tolerance
+    reset_launches(kern)
+    with tf32(torch, False):
+        o = FA.flash_attention(q, k, v, causal=True)
+        fwd_launches = _k6_split(kern)
+        check(o.requires_grad and fwd_launches["flash_mma"] == 1
+              and sum(fwd_launches.values()) == 1,
+              f"train_check: the forward launched {fwd_launches}, one "
+              f"flash_mma through FlashAttentionFn expected")
+        forward = k6_check(torch, o.detach(),
+                           FA.attention_ref(q.detach(), k.detach(),
+                                            v.detach(), causal=True),
+                           "train_check: K6's forward under autograd")
+        del o
+    # the backward's recompute (layers.sdpa_grad) against autograd
+    # through layers._sdpa_chunked: no kernel output enters either
+    got, want = k6_fwd_bwd(), twin_fwd_bwd()
+    grads = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        top = float(w.float().abs().max())
+        tol = 4 * bf16_step(top)
+        err = float((a.float() - w.float()).abs().max())
+        check(bool(torch.isfinite(a).all()) and err <= tol,
+              f"train_check: the recompute's {name} off the twin's by "
+              f"{err} (> {tol})")
+        grads[name] = {"max_abs_err": err, "max_abs": top, "tol": tol}
+    out["k6_autograd"] = {
+        "q": list(q.shape), "kv": list(k.shape), "dtype": "bfloat16",
+        "causal": True, "forward": forward,
+        "forward_launches": fwd_launches, "recompute_grads": grads,
+        "recompute_tol": "4 bf16 steps at the largest |gradient|",
+        "k6_fwd_bwd_ms": time_call_ms(torch, k6_fwd_bwd),
+        "twin_fwd_bwd_ms": time_call_ms(torch, twin_fwd_bwd),
+        "library_fwd_bwd_ms": time_call_ms(torch, sdpa_fwd_bwd),
+        "k6_fwd_ms": time_call_ms(torch, lambda: FA.flash_attention(
+            q.detach(), k.detach(), v.detach(), causal=True))}
+    emit(out)
+    del q, k, v, go, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tree_to(tree, device):
+    from repro_torch import tree as TR
+    return TR.map(lambda t: t.to(device, copy=True), tree)
+
+
+def phase_train_moe(torch, kern, TR, M, MH, MOE, configs, device) -> dict:
+    """K5 on the training path: qwen2-moe-a2.7b (hf:Qwen/Qwen1.5-MoE-
+    A2.7B) at full width (60 experts top-4 + 4 shared, vocab 151 936),
+    depth cut to MOE_TRAIN_LAYERS (its float32 masters and AdamW state
+    at 24 layers need about 229 GB), batch MOE_TRAIN_BATCH ×
+    MOE_TRAIN_SEQ, MOE_TRAIN_STEPS steps of ``train.make_train_step``
+    with the launcher's schedule.  The launcher's balancer,
+    ``ExpertBalancer(E, min(8, E))``, asserts at E = 60 as the
+    reference's does (ROADMAP F7), so the phase balances over
+    MOE_EP_SHARDS shards itself and installs the placement after swaps
+    as the launcher does.  K5 must launch twice a MoE layer a step
+    (forward and the backward's recompute); every loss finite; each
+    forward call's counts equal to the plain version's on its inputs
+    and their sum the step's expert counts; the swaps reported."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.distributed import ExpertBalancer
+    full = configs.get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
+    n_exp = cfg.moe.num_experts
+    at_start = _free_card(torch)
+    calls = []
+    wrapped = MOE.moe_histogram
+
+    def spy(idx, gates, *, num_experts):
+        out = wrapped(idx, gates, num_experts=num_experts)
+        calls.append((idx, gates, out[0]))
+        return out
+
+    params = M.init_params(cfg, 0, device=device, dtype=torch.float32)
+    opt = TR.init_opt_state(params)
+    step_fn = TR.make_train_step(cfg, TR.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(MOE_TRAIN_STEPS // 10, 1),
+        total_steps=MOE_TRAIN_STEPS))
+    balancer = ExpertBalancer(n_exp, MOE_EP_SHARDS)
+    placement = torch.arange(n_exp, dtype=torch.int32, device=device)
+    n_params = sum(p.numel() for p in _tree_leaves(params))
+    data = make_batch_iterator(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in next(data).items()}
+               for _ in range(MOE_TRAIN_STEPS)]
+    step_s, losses, swaps, counts_ok = [], [], [], True
+    MOE.moe_histogram = spy
+    try:
+        reset_launches(kern)                  # counts from here …
+        for batch in batches:
+            calls.clear()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch, placement)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            rep = balancer.update(m["expert_counts"].cpu().numpy())
+            swaps.append(rep["swaps"])
+            if rep["swaps"]:
+                placement = torch.as_tensor(
+                    np.asarray(balancer.placement), dtype=torch.int32,
+                    device=device)
+            fwd = calls[:MOE_TRAIN_LAYERS]
+            summed = sum(c for _, _, c in fwd)
+            counts_ok &= len(calls) == 2 * MOE_TRAIN_LAYERS and all(
+                torch.equal(c, MH.moe_histogram_ref(i, g, n_exp)[0])
+                for i, g, c in fwd) \
+                and torch.equal(summed, m["expert_counts"])
+        launches = read_launches(kern)        # … to here
+    finally:
+        MOE.moe_histogram = wrapped
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["moe_histogram"] == 2 * MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS
+          and launches["flash_attention"]
+          == 2 * MOE_TRAIN_LAYERS * MOE_TRAIN_STEPS,
+          f"train_moe: launches {launches}, {2 * MOE_TRAIN_LAYERS} K5 and "
+          f"K6 a step expected (forward and recompute)")
+    check(all(math.isfinite(x) for x in losses), f"train_moe: {losses}")
+    check(counts_ok, "train_moe: K5's counts differ from its plain "
+          "version's or do not sum to the step's expert counts")
+    med = statistics.median(step_s[1:])
+    out = {"phase": "train_moe", "arch": LM_ARCH, "model": cfg.name,
+           "layers": MOE_TRAIN_LAYERS, "d_model": cfg.d_model,
+           "experts": n_exp, "top_k": cfg.moe.top_k,
+           "shared": cfg.moe.num_shared, "vocab": cfg.vocab_size,
+           "cut": f"depth {full.num_layers} -> {MOE_TRAIN_LAYERS}",
+           "params": n_params, "allocated_at_start": at_start,
+           "batch": MOE_TRAIN_BATCH,
+           "seq": MOE_TRAIN_SEQ, "remat": "dots_no_batch",
+           "steps": MOE_TRAIN_STEPS, "step_s": step_s,
+           "step_s_median": med,
+           "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / med,
+           "max_memory_allocated": peak, "losses": losses,
+           "launches": launches, "counts_exact": counts_ok,
+           "ep_shards": MOE_EP_SHARDS,
+           "ep_shards_note": "the launcher's min(8, E) asserts at E = 60 "
+                             "(F7); the phase's own balancer",
+           "balancer_swaps": swaps, "ep_moves": balancer.moves}
+    emit(out)
+    del params, opt, batches, m
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1582,6 +2092,8 @@ def main() -> int:
     from repro_torch.kernels.moe_histogram import order as MO
     from repro_torch import configs
     from repro_torch.launch import serve as LS
+    from repro_torch.launch import train as LT
+    from repro_torch import train as TR
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
@@ -1672,6 +2184,9 @@ def main() -> int:
     emit({"serve_kernels": lm})
     del serve
     torch.cuda.empty_cache()
+    phase_train(torch, kern, LT, M, configs, device)
+    phase_train_check(torch, kern, FA, L, M, TR, configs, device)
+    phase_train_moe(torch, kern, TR, M, MH, MOE, configs, device)
     emit({"library_ms": {
         "spatial_match": "null: no single PyTorch call computes the "
                          "inclusive containment counts of both sides",

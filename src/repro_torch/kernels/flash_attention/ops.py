@@ -23,7 +23,12 @@ each row of q, k and v must start on 16 bytes (a misaligned view raises
 ``ValueError``; nothing is copied to fix it).  ``launches`` counts the
 kernel launches, so a run can show it went through the kernels, and
 ``launches_by_kernel`` splits them by kernel: a decode step of more than
-one key chunk launches ``flash_decode`` and then ``flash_merge``.
+one key chunk launches ``flash_decode`` and then ``flash_merge``.  When
+autograd records (grad enabled and any of q, k, v requiring grad) the
+CUDA call goes through ``autograd.FlashAttentionFn``: the same kernel
+forward, and a backward that recomputes the reference's attention; in
+every other case (serving, ``no_grad``, decode) it launches the kernel
+bare.  Either way a kernel that does not build or launch raises.
 """
 import ctypes
 import functools
@@ -34,11 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .autograd import FlashAttentionFn
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "launch", "build", "bind", "decode_chunks",
-           "padded_head_dim", "SOURCE", "HEAD_DIMS", "ROW_MAX", "KERNELS",
-           "launches", "launches_by_kernel"]
+__all__ = ["flash_attention", "kernel_attention", "launch", "build", "bind",
+           "decode_chunks", "padded_head_dim", "SOURCE", "HEAD_DIMS",
+           "ROW_MAX", "KERNELS", "launches", "launches_by_kernel"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "flash_attention.cu")
@@ -149,6 +155,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                      kernel_attention)
+    return kernel_attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset)
+
+
+def kernel_attention(q, k, v, *, causal: bool = True, window=None,
+                     q_offset: int = 0) -> torch.Tensor:
+    """The kernels on checked CUDA inputs, with no autograd history: an
+    unbuilt head dim zero-padded to a built one, then :func:`launch`."""
     d = q.shape[3]
     width = padded_head_dim(d)
     if width == d:

@@ -7,14 +7,20 @@ counts) and ``<layer>`` (apply).  The arithmetic follows the reference
 op for op: norms and RoPE in float32, products in the compute type.
 Attention runs on kernel K6 (``kernels/flash_attention``): its CUDA
 kernel for CUDA tensors, its plain PyTorch version for CPU tensors.
-The reference's query-chunked ``_sdpa_chunked`` and ``segmented_scan``
-have no counterpart: chunking is K6's job, and the recurrent mixers
-that need the scan are not ported yet.
+The reference's XLA attention, ``_sdpa_direct`` and the query-chunked
+``_sdpa_chunked``, has its twins here: they are not on the forward
+path, but K6's backward pass recomputes attention through them
+(:func:`sdpa_grad`), as the reference's gradient does.
+``segmented_scan`` has no counterpart: the recurrent mixers that need
+it are not ported yet.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
@@ -118,6 +124,83 @@ def attention_spec(cfg: ModelConfig):
         "wv": leaf((d, hkv, dh), (P.EMBED, P.KV_HEADS, P.HEAD_DIM)),
         "wo": leaf((h, dh, d), (P.HEADS, P.HEAD_DIM, P.EMBED)),
     }
+
+
+SDPA_CHUNK = 512           # query-block size for the chunked path
+SDPA_DIRECT_MAX = 1024     # use the direct path when s_q <= this
+
+
+def _mask(sq, skv, q_base, q_offset, causal, window, device=None):
+    rows = torch.arange(sq, device=device)[:, None] + q_base + q_offset
+    cols = torch.arange(skv, device=device)[None, :]
+    m = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= cols <= rows
+    if window is not None:
+        m &= cols > rows - window
+    return m
+
+
+def _sdpa_direct(q, k, v, *, causal, window, q_offset, q_base=0):
+    """The reference's XLA attention: q (B, S, H, Dh), k and v (B, Skv,
+    Hkv, Dh) → (B, S, H, Dh).  Scores in float32, masked scores set to
+    -1e30 before the softmax, the probabilities cast to v's type for the
+    PV product."""
+    b, sq, h, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    scale = 1.0 / math.sqrt(dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float() * scale, k.float())
+    m = _mask(sq, skv, q_base, q_offset, causal, window, q.device)
+    s = s.masked_fill(~m, -1e30)
+    p = torch.softmax(s, -1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return o.reshape(b, sq, h, dh)
+
+
+def _sdpa_chunked(q, k, v, *, causal, window, q_offset):
+    """Query-chunked attention: SDPA_CHUNK query rows at a time, each
+    chunk under ``torch.utils.checkpoint`` (the reference's
+    ``nothing_saveable``), so the residuals are q, k and v alone and the
+    (S, S) scores never exist whole.  S must be a multiple of
+    SDPA_CHUNK."""
+    sq = q.shape[1]
+    outs = [checkpoint(_sdpa_direct, q[:, lo:lo + SDPA_CHUNK], k, v,
+                       causal=causal, window=window, q_offset=q_offset,
+                       q_base=lo, use_reentrant=False)
+            for lo in range(0, sq, SDPA_CHUNK)]
+    return torch.cat(outs, 1)
+
+
+def sdpa_grad(q, k, v, grad, *, causal, window, q_offset):
+    """The gradient of the reference's attention at q (B, S, H, Dh), k
+    and v (B, Skv, Hkv, Dh) against ``grad`` (B, S, H, Dh): (dq, dk,
+    dv) in the inputs' types.  Up to SDPA_DIRECT_MAX rows (or S off a
+    multiple of SDPA_CHUNK) it differentiates ``_sdpa_direct`` whole, as
+    the reference's ``_sdpa`` dispatches; past it, ``_sdpa_chunked``'s
+    chunks one at a time — each chunk recomputed once and differentiated
+    at once, so one chunk's scores exist at a time — with dk and dv
+    summed over the chunks in float32.  GQA's sum of each kv head's
+    query group is autograd's own."""
+    sq = q.shape[1]
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    with torch.enable_grad():
+        if sq <= SDPA_DIRECT_MAX or sq % SDPA_CHUNK:
+            return torch.autograd.grad(_sdpa_direct(q, k, v, **kw),
+                                       (q, k, v), grad)
+        dq = torch.empty_like(q)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for lo in range(0, sq, SDPA_CHUNK):
+            qi = q[:, lo:lo + SDPA_CHUNK].detach().requires_grad_(True)
+            o = _sdpa_direct(qi, k, v, q_base=lo, **kw)
+            gq, gk, gv = torch.autograd.grad(
+                o, (qi, k, v), grad[:, lo:lo + SDPA_CHUNK])
+            dq[:, lo:lo + SDPA_CHUNK] = gq
+            dk += gk
+            dv += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _sdpa(q, k, v, *, causal, window, q_offset):

@@ -4,10 +4,12 @@ the families whose mixer is attention — ``dense``, ``moe``, ``vlm``
 frontend stub).  ``hybrid`` and ``ssm`` raise ``NotImplementedError``:
 their Mamba and xLSTM mixers are not ported yet (ROADMAP Queue 1 item 9).
 
-Three entry points, as in the reference:
+Entry points, as in the reference:
   forward(...)      — full-sequence logits (+ MoE aux)
   prefill(...)      — forward + cache construction — serving prefill
   decode_step(...)  — one-token incremental step over the cache
+  loss_fn(...)      — training loss: ``forward_hidden`` and a
+                      cross-entropy chunked over the sequence
 
 ``param_spec`` is the reference's spec, period axis and all (it fixes
 the init scales and the parameter count).  The parameters themselves are
@@ -18,13 +20,20 @@ Weights are stored once in the compute type, except the router and the
 norm scales, which stay float32 — the values the reference's per-use
 casts give.  The KV cache is (layers, B, Hkv, max_seq, Dh) per tensor,
 the layout kernel K6 reads; ``decode_step`` writes it in place and its
-offset is a Python int.
+offset is a Python int.  Training keeps float32 master weights (the
+reference's "params are fp32 masters"): ``init_params(...,
+dtype=torch.float32)``; every product casts its weight to the compute
+type at use.  ``remat`` names the reference's checkpoint policies and
+maps each onto ``torch.utils.checkpoint`` around every block.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from . import moe as MOE
@@ -166,6 +175,39 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     return params
 
 
+def unstack(cfg: ModelConfig, fetch, convert):
+    """The port's tree from the reference's layout, leaf by leaf over
+    the spec: ``fetch(path)`` gives the reference's leaf at a spec path
+    (stacked over the periods for a block leaf), checked against the
+    spec's shape, and ``convert(path, value, layer)`` the port's leaf
+    from it — for a block leaf once per layer with the layer's slice,
+    else once with ``layer`` None."""
+    params = empty_params(cfg)
+    n_pos = len(period_pattern(cfg))
+    for path, lf in L.spec_items(param_spec(cfg)):
+        arr = fetch(path)
+        if tuple(arr.shape) != lf["shape"]:
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(arr.shape)}, "
+                             f"the spec says {lf['shape']}")
+        if path[0] != "blocks":
+            place(params, path, convert(path, arr, None))
+            continue
+        for i in range(arr.shape[0]):
+            layer = i * n_pos + int(path[1][3:])
+            place(params, path, convert(path, arr[i], layer), n_pos, i)
+    return params
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32):
+    """The port's parameter tree on the ``meta`` device — shapes and
+    types without storage, every leaf in ``dtype`` (the reference's
+    ``abstract_params``): the template ``checkpoint.restore`` fills."""
+    spec = dict(L.spec_items(param_spec(cfg)))
+    return unstack(cfg, lambda path: torch.empty(
+        spec[path]["shape"], dtype=dtype, device="meta"),
+        lambda path, leaf, layer: leaf)
+
+
 # ---------------------------------------------------------------------------
 # Cache
 # ---------------------------------------------------------------------------
@@ -198,29 +240,64 @@ def _embed(params, cfg, token_ids=None, embeds=None):
     return L.embed_tokens(params["embed"], token_ids, cfg)
 
 
+# the reference's checkpoint policies (train/train_step.py REMAT_POLICIES)
+# as the products whose outputs a block keeps: "none" and "everything"
+# keep all (no checkpoint), "nothing" keeps none (the whole block is
+# recomputed), "dots_no_batch" the products without batch dimensions
+# (``aten.mm``/``addmm``: projections and MLPs), "dots" the batched
+# expert products (``aten.bmm``) as well
+_SAVED_PRODUCTS = {
+    "dots_no_batch": ("mm", "addmm"),
+    "dots": ("mm", "addmm", "bmm"),
+}
+REMAT_POLICIES = ("none", "dots", "dots_no_batch", "nothing", "everything")
+
+
+def _remat_context(remat):
+    """The ``context_fn`` of the selective checkpoint for ``remat``."""
+    ops = [getattr(torch.ops.aten, name).default
+           for name in _SAVED_PRODUCTS[remat]]
+    return functools.partial(create_selective_checkpoint_contexts, ops)
+
+
+def _block(lp, x, cfg, positions, kv, offset, placement):
+    """One block: (x, expert counts, aux loss)."""
+    h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    o, _ = L.attention(lp["attn"], h, cfg, positions=positions,
+                       kv_cache=kv, cache_offset=offset)
+    x = x + o
+    h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+    if cfg.moe is None:
+        return x + L.mlp(lp["ffn"], h2, cfg), None, None
+    o2, moe_aux = MOE.moe_ffn(lp["ffn"], h2, cfg, placement=placement)
+    return x + o2, moe_aux["expert_counts"], moe_aux["aux_loss"]
+
+
 def _layers(params, x, cfg, *, positions, cache=None, offset=0,
-            placement=None):
+            placement=None, remat=None):
     """Every block in order; with a cache, each attention layer writes
-    its keys and values into its slice of it.  Returns (x, aux)."""
+    its keys and values into its slice of it.  ``remat`` (a name of
+    :data:`REMAT_POLICIES`; None is "none") checkpoints each block:
+    the placement that bounds per-layer residual memory, as the
+    reference's scan body.  Returns (x, aux)."""
     _require_ported(cfg)
+    if remat not in (None, *REMAT_POLICIES):
+        raise ValueError(f"remat={remat!r}: one of {REMAT_POLICIES}")
     n_exp = cfg.moe.num_experts if cfg.moe else 1
     counts = torch.zeros((n_exp,), dtype=torch.float32, device=x.device)
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _block
+    if remat == "nothing":
+        block = functools.partial(checkpoint, _block, use_reentrant=False)
+    elif remat in _SAVED_PRODUCTS:
+        block = functools.partial(checkpoint, _block, use_reentrant=False,
+                                  context_fn=_remat_context(remat))
     for i, lp in enumerate(params["layers"]):
         kv = None if cache is None else (cache["kv_k"][i], cache["kv_v"][i])
-        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-        o, _ = L.attention(lp["attn"], h, cfg, positions=positions,
-                           kv_cache=kv, cache_offset=offset)
-        x = x + o
-        h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-        if cfg.moe is not None:
-            o2, moe_aux = MOE.moe_ffn(lp["ffn"], h2, cfg,
-                                      placement=placement)
-            counts = counts + moe_aux["expert_counts"]
-            aux_loss = aux_loss + moe_aux["aux_loss"]
-        else:
-            o2 = L.mlp(lp["ffn"], h2, cfg)
-        x = x + o2
+        x, c, a = block(lp, x, cfg, positions, kv, offset, placement)
+        if c is not None:
+            counts = counts + c
+            aux_loss = aux_loss + a
     return x, {"expert_counts": counts, "aux_loss": aux_loss}
 
 
@@ -264,3 +341,67 @@ def decode_step(params, cfg: ModelConfig, cache, token_ids,
     new_cache = dict(cache, offset=offset + 1)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_head(params, x, cfg), new_cache, aux
+
+
+def forward_hidden(params, cfg: ModelConfig, *, token_ids=None, embeds=None,
+                   placement=None, remat=None):
+    """Final-norm hidden states (B, S, D) + aux — the lm_head is applied
+    downstream (chunked in the loss so full float32 logits never
+    exist)."""
+    x = _embed(params, cfg, token_ids, embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _layers(params, x, cfg, positions=positions,
+                     placement=placement, remat=remat)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+CE_CHUNK = 512
+
+
+def _chunk_ce(params, cfg, x_c, y_c, m_c):
+    """(−Σ log p(y) over the chunk's kept positions, their count); the
+    chunk's logits in float32."""
+    logits = L.lm_head(params, x_c, cfg).float()
+    lse = torch.logsumexp(logits, -1)
+    picked = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+    return -((picked - lse) * m_c).sum(), m_c.sum()
+
+
+def _chunked_ce(params, cfg, x, labels, mask):
+    """Cross-entropy over sequence chunks of CE_CHUNK positions: each
+    chunk's logits are computed, reduced and recomputed in the backward
+    pass (``torch.utils.checkpoint``, the reference's
+    ``nothing_saveable``), so the (B, S, V) float32 logits never exist.
+    A sequence that is not a multiple of CE_CHUNK is one chunk, as in
+    the reference."""
+    s = x.shape[1]
+    size = CE_CHUNK if s % CE_CHUNK == 0 else s
+    num = den = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, size):
+        dn, dd = checkpoint(_chunk_ce, params, cfg, x[:, lo:lo + size],
+                            labels[:, lo:lo + size], mask[:, lo:lo + size],
+                            use_reentrant=False)
+        num, den = num + dn, den + dd
+    return num / den.clamp_min(1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, placement=None, remat=None):
+    """Next-token (causal) or per-frame (encoder) cross-entropy, with the
+    vocab projection chunked over the sequence; the MoE aux loss added
+    at ``router_aux_weight``.  Returns (loss, aux)."""
+    x, aux = forward_hidden(params, cfg, token_ids=batch.get("tokens"),
+                            embeds=batch.get("embeds"),
+                            placement=placement, remat=remat)
+    labels = batch["labels"]
+    if cfg.encoder_only:
+        mask = (labels >= 0).float()
+        tgt = labels.clamp_min(0)
+    else:  # next-token: predict labels[t+1] from x[t]; last position void
+        tgt = torch.cat([labels[:, 1:], labels[:, :1]], 1).clamp_min(0)
+        mask = torch.cat([(labels[:, 1:] >= 0).float(),
+                          torch.zeros_like(labels[:, :1], dtype=torch.float32)],
+                         1)
+    loss = _chunked_ce(params, cfg, x, tgt, mask)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux["aux_loss"]
+    return loss, aux

@@ -86,7 +86,12 @@ def moe_ffn(p, x, cfg: ModelConfig, placement=None):
     capacity = _capacity(m, s)
     flat_e = idx.reshape(b, s * k)
     row, keep = _dispatch(flat_e, e, capacity)
-    spare = e * b * capacity           # a dropped slot's row, discarded
+    # a dropped slot's row, discarded: every dropped slot writes it (in
+    # an order of no account), nothing reads it, so the backward pass
+    # gives the dropped slots a zero gradient, as the reference's
+    # masked add does; each kept slot owns its row, so the store is a
+    # permutation and its backward a gather
+    spare = e * b * capacity
     x_slots = x.repeat_interleave(k, dim=1)                 # (B, S·K, D)
     buf = x.new_zeros(spare + 1, d)
     buf[torch.where(keep, row, spare).reshape(-1)] = x_slots.reshape(-1, d)
@@ -105,9 +110,13 @@ def moe_ffn(p, x, cfg: ModelConfig, placement=None):
         us = x @ sp["w_up"].to(dtype)
         out = out + (F.silu(gs) * us) @ sp["w_down"].to(dtype)
 
-    # SWARM collector (router histogram, K5) + Switch-style aux loss
+    # SWARM collector (router histogram, K5) + Switch-style aux loss.  K5
+    # carries no gradient and needs none: the reference's counts come
+    # from a one-hot, whose gradient is zero; so its gates go in detached,
+    # and its gate-weighted load, which nothing differentiable may read,
+    # is dropped here
     counts, _ = moe_histogram(idx.reshape(-1, k).int(),
-                              gate.reshape(-1, k).contiguous(),
+                              gate.detach().reshape(-1, k).contiguous(),
                               num_experts=e)
     frac_tokens = counts / counts.sum().clamp_min(1.0)
     frac_probs = probs.mean((0, 1))

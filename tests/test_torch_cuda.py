@@ -5,7 +5,10 @@ on ``TorchPlane("cuda")`` against the port's own NumPy reference plane;
 kernels K5 and K6 against their plain versions (counts exact, attention
 at the JAX package's tolerances) and the LM serving path through them
 (smoke models against the CPU, qwen2-moe-a2.7b at full width with two
-layers against its plain path).  Every test here needs the card and
+layers against its plain path); training through them: K6's backward
+against the reference's attention twin, every attention weight's
+gradient against the CPU's (F6), a train step against the CPU's, and a
+stream checkpoint resumed on the card.  Every test here needs the card and
 skips without one; the file imports nothing of JAX, so it runs on a
 machine that has only PyTorch:
 
@@ -800,3 +803,194 @@ def test_two_layer_full_width_prefill_and_decode_on_the_card(cuda_device):
         assert a.shape == (2, 1, cfg.vocab_size)
         assert torch.isfinite(a).all()
         assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# training on the card: K6 under autograd (F6), a train step, checkpoints
+# ---------------------------------------------------------------------------
+
+def _bf16_step(x):
+    import math
+    return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126))) - 7)
+
+
+def _grad_tol(want):
+    """K6's backward against the recompute's own autograd: bfloat16
+    within 4 bf16 steps at the largest |gradient| (the chunks' dk and dv
+    are summed in float32 by K6's backward, in bfloat16 by autograd);
+    float32 within 1e-5 of it."""
+    top = float(want.float().abs().max())
+    return 4 * _bf16_step(top) if want.dtype == torch.bfloat16 else 1e-5 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,window", [
+    (2, 4, 2, 1536, 128, None),     # chunked, GQA
+    (1, 4, 4, 1536, 80, 300),       # chunked, windowed, a padded-free D
+    (2, 4, 2, 300, 16, None),       # direct
+    (1, 4, 1, 200, 12, 50),         # direct, D padded to 16 by K6
+])
+def test_flash_attention_backward_on_the_card(cuda_device, dtype, b, h, hkv,
+                                              s, d, window):
+    """With grad enabled K6 returns through ``FlashAttentionFn``: one
+    kernel launch forward, its output the grad-free call's, and dq, dk,
+    dv equal to autograd through the reference's attention twin
+    (``_sdpa_chunked`` past SDPA_DIRECT_MAX, else ``_sdpa_direct``) on
+    the card."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(7, b, h, hkv, s, s, d, dtype, cuda_device))
+    g = torch.randn(b, h, s, d, device=cuda_device).to(dtype)
+    out, launched = _launched(FA, lambda: FA.flash_attention(
+        q, k, v, causal=True, window=window))
+    assert launched == {"flash_mma" if dtype == torch.bfloat16
+                        else "flash_tile": 1}
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        torch.testing.assert_close(out, FA.flash_attention(
+            q, k, v, causal=True, window=window), rtol=0, atol=0)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    fn = (L._sdpa_direct if s <= L.SDPA_DIRECT_MAX else L._sdpa_chunked)
+    ref = fn(*(t.transpose(1, 2) for t in (q, k, v)), causal=True,
+             window=window, q_offset=0).transpose(1, 2)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == w.dtype == dtype
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= _grad_tol(w), (name, err, _grad_tol(w))
+
+
+def _smoke_grads(arch, device, params_cpu):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.train import make_grad_fn
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32")
+    batch = next(make_batch_iterator(cfg, 2, 64, seed=3))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    return make_grad_fn(cfg)(_to(params_cpu, device), batch)
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "h2o_danube_1_8b",
+                                  "qwen2_moe_a2_7b"])
+def test_attention_weights_get_their_gradient_on_the_card(cuda_device,
+                                                          arch):
+    """F6's pin: through K6 on the card every layer's wq, wk, wv and wo
+    gets a non-zero gradient equal to the CPU's (float32, rtol 1e-3,
+    atol 1e-5).  Before F6 was repaired the kernel's output had no
+    history, and wq, wk, wv got zeros on the card."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32")
+    cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    (l_cpu, _), g_cpu = _smoke_grads(arch, "cpu", cpu)
+    (l_card, _), g_card = _smoke_grads(arch, cuda_device, cpu)
+    assert abs(float(l_card) - float(l_cpu)) < 1e-4
+    for i, (a, c) in enumerate(zip(g_cpu["layers"], g_card["layers"])):
+        for w in ("wq", "wk", "wv", "wo"):
+            got = c["attn"][w].cpu()
+            assert float(got.abs().max()) > 0, (i, w)
+            torch.testing.assert_close(got, a["attn"][w], rtol=1e-3,
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_moe_a2_7b"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """One train step (remat dots_no_batch) on the card and on the CPU
+    from the same float32 params and batch: loss within 1e-4, grad norm
+    within 1e-3 relative, expert counts exact; K6 launches its float32
+    kernel twice a layer (forward and the backward's recompute), K5
+    twice a MoE layer."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch import tree as TR
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_histogram as MH
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              dtype="float32")
+    cpu = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    batch = next(make_batch_iterator(cfg, 4, 64, seed=1))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=4))
+    out = []
+    for dev in ("cpu", cuda_device):
+        params = _to(cpu, dev) if dev != "cpu" else TR.map(torch.clone, cpu)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        before = (dict(FA.ops.launches_by_kernel), MH.ops.launches)
+        _, _, m = step(params, init_opt_state(params), b)
+        torch.cuda.synchronize()
+        launched = ({n: c - before[0][n]
+                     for n, c in FA.ops.launches_by_kernel.items()},
+                    MH.ops.launches - before[1])
+        out.append((m, launched))
+    (m_cpu, none), (m_card, launched) = out
+    assert none == ({n: 0 for n in FA.ops.KERNELS}, 0)
+    n_moe = cfg.num_layers if cfg.moe else 0
+    assert launched == ({"flash_decode": 0, "flash_merge": 0,
+                         "flash_tile": 2 * cfg.num_layers, "flash_mma": 0},
+                        2 * n_moe)
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) < 1e-4
+    np.testing.assert_allclose(float(m_card["grad_norm"]),
+                               float(m_cpu["grad_norm"]), rtol=1e-3)
+    assert torch.equal(m_card["expert_counts"].cpu(), m_cpu["expert_counts"])
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_stream_checkpoint_resumes_on_the_card(cuda_device, window):
+    """A mid-run snapshot of the streaming engine on plane "torch"
+    resumes to the continuous run's metric rows, bit for bit."""
+    import tempfile
+    from repro_torch.checkpoint import restore_stream, save_stream
+    from repro_torch.ft import ChaosSpec, two_region
+    from repro_torch.streaming.engine import EngineConfig, StreamingEngine
+    from repro_torch.streaming.experiments import (Experiment, RouterSpec,
+                                                   ScenarioSpec)
+    m = 8
+    exp = Experiment(
+        scenario=ScenarioSpec(name="two_overlapping", ticks=60,
+                              preload_queries=1500,
+                              chaos=ChaosSpec(seed=2, ticks=60,
+                                              drop_beats=0.05,
+                                              delay_beats=0.1, partitions=1,
+                                              partition_len=4, interrupts=2)),
+        router=RouterSpec(kind="swarm", link_aware=True, trend_window=6),
+        engine=EngineConfig(num_machines=m, adaptive_detector=True,
+                            fused_window=window,
+                            links=two_region(m, inter_ms=25.0,
+                                             jitter_ms=10.0, tick_ms=10.0,
+                                             seed=1)),
+        data_plane="torch")
+
+    def build():
+        src = exp.scenario.build(seed=exp.seed, workload=exp.workload)
+        router = exp.router.build(num_machines=m, workload=exp.workload,
+                                  data_plane=exp.data_plane, seed=exp.seed,
+                                  standby=exp.engine.standby_machines)
+        eng = StreamingEngine(router, src, exp.engine)
+        pre = eng.stream.preload(exp.scenario.preload_queries)
+        if pre is not None:
+            router.ingest(pre)
+        return eng
+
+    cont = build()
+    cont.run(40)
+    half = build()
+    half.run(20)
+    with tempfile.TemporaryDirectory() as d:
+        save_stream(d, half)
+        fresh = build()
+        assert restore_stream(d, fresh) == 20
+        fresh.run(20)
+    a, b = cont.metrics.asarrays(), fresh.metrics.asarrays()
+    for k in a:
+        assert np.array_equal(a[k][20:], b[k]), k

@@ -19,6 +19,7 @@ REF = os.path.join(SRC, "repro")
 # the host modules the port carries as file-for-file copies
 COPIED = [
     "analysis/sanitizer.py",
+    "checkpoint/__init__.py", "checkpoint/stream.py",
     "configs/__init__.py", "configs/deepseek_moe_16b.py",
     "configs/gemma_7b.py", "configs/h2o_danube_1_8b.py",
     "configs/hubert_xlarge.py", "configs/internlm2_1_8b.py",
@@ -28,9 +29,11 @@ COPIED = [
     "core/__init__.py", "core/cost_model.py", "core/global_index.py",
     "core/integrity.py", "core/planner.py", "core/protocol.py",
     "core/statistics.py",
+    "data/__init__.py", "data/pipeline.py",
     "distributed/moe_placement.py",
     "ft/__init__.py", "ft/chaos.py", "ft/coordinator.py", "ft/links.py",
     "ft/straggler.py",
+    "launch/analytic.py",
     "queries/__init__.py", "queries/keywords.py", "queries/models.py",
     "queries/store.py",
     "serve/router.py",
@@ -42,7 +45,7 @@ COPIED = [
 ]
 # files with a counterpart under src/repro that the port rewrites: the
 # modules that reached JAX, the package façades, and the kernel packages
-# (models/convert.py and launch/__init__.py have no counterpart)
+# (models/convert.py, tree.py and launch/__init__.py have no counterpart)
 REWRITTEN = [
     "analysis/__init__.py", "core/balancer.py", "core/geometry.py",
     "streaming/__init__.py", "streaming/engine.py",
@@ -64,6 +67,9 @@ REWRITTEN = [
     "serve/__init__.py", "serve/engine.py",
     "distributed/__init__.py",
     "launch/serve.py",
+    "checkpoint/checkpoint.py",
+    "train/__init__.py", "train/optimizer.py", "train/train_step.py",
+    "launch/train.py",
 ]
 
 
@@ -103,7 +109,9 @@ def test_no_jax_or_repro_imports(rel):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.streaming, repro_torch.kernels, "
             "repro_torch.analysis, repro_torch.models, repro_torch.serve, "
-            "repro_torch.distributed, repro_torch.launch.serve; "
+            "repro_torch.distributed, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.launch.analytic, "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
