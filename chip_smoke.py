@@ -34,6 +34,19 @@ paths at realistic sizes:
   ``serve_profile``); then (phase ``serve_check``) two layers at full
   width, the kernel path against the plain path and decode against a
   full forward;
+- the recurrent families: jamba-v0.1-52b at full width (d_model 4096,
+  16 experts top-2, Mamba d_state 16) with its depth cut to one period
+  of 8 layers (phase ``serve_hybrid``: ``launch.serve.serve_config``
+  with phase ``serve``'s traffic, K6 once and K5 four times per call,
+  both held against their plain versions at the path's inputs, and a
+  profile split of one prefill and one decode call — the scan loop's
+  device and host time against the products, K5 and K6); phase
+  ``hybrid_check`` that period at B = 2, the kernel path against the
+  plain path (bf16 and float32) and decode against a full forward, and
+  xlstm-1.3b cut to one period, the card against the CPU in float32;
+  phase ``serve_ssm`` xlstm-1.3b at full width and depth (48 layers of
+  sLSTM and mLSTM scans, no kernel), 64 sessions, prompt 512, 16
+  decode calls, with the same profile split;
 - the training path (phase ``train``): ``repro_torch.launch.train``'s
   ``Trainer`` on internlm2-1.8b at full width and depth (24 layers,
   float32 masters and AdamW state, bf16 compute, batch 4 × 2048, remat
@@ -60,7 +73,8 @@ merge kernels.  Phase ``k4`` holds K4 at k = 8, 17 and 32; the
 (the launches of its prefill kernels) and, as ``flash_attention_decode``,
 at its last decode input (the launches of its decode and merge
 kernels); each wrapper counts every kernel it launches, and K4's and
-K6's rows split their count by kernel.  K2–K4's operation bounds count one
+K6's rows split their count by kernel, and K5's and K6's rows by path
+(``serve`` and ``serve_hybrid``).  K2–K4's operation bounds count one
 instruction per lane and clock (SINGLE_ISSUE_OPS_PER_S).
 
 Each phase prints one JSON line; then the card's name and power limit
@@ -135,8 +149,23 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = \
     4, 4, 1024, 4
 MOE_EP_SHARDS = 6             # the largest divisor of 60 experts up to 8
 CKPT_DIR = "_train_ckpt"      # under the checkout (gitignored), removed after
-# phase k5: (assignments T, top-k K, experts E)
-K5_SHAPES = ((256, 4, 60), (65536, 4, 60), (65536, 6, 64))
+# the recurrent families (PERF.md §4): jamba-v0.1-52b at full width, its
+# depth cut 32 → one period of 8 layers (the whole model, 51.6 B
+# parameters, ~103 GB in bf16, does not fit the card), served with phase
+# serve's traffic; replica 0 serves HYBRID_BATCH of its sessions.
+# xlstm-1.3b at full width and depth, SSM_SESSIONS sessions, a prompt of
+# SSM_PROMPT and SSM_DECODE_CALLS decode calls.  Phase hybrid_check holds
+# jamba at CHECK_BATCH × CHECK_PROMPT and xlstm cut to one period
+# (SSM_CHECK_LAYERS) on the card against the CPU
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_BATCH = "jamba_v0_1_52b", 8, 50
+SSM_ARCH, SSM_SESSIONS, SSM_PROMPT, SSM_DECODE_CALLS = \
+    "xlstm_1_3b", 64, 512, 16
+SSM_CHECK_LAYERS, SSM_CHECK_BATCH, SSM_CHECK_PROMPT, SSM_CHECK_STEPS = \
+    8, 2, 32, 3
+# phase k5: (assignments T, top-k K, experts E); the last two jamba's
+# prefill and decode calls (HYBRID_BATCH rows, top-2 of 16)
+K5_SHAPES = ((256, 4, 60), (65536, 4, 60), (65536, 6, 64),
+             (HYBRID_BATCH * LM_PROMPT, 2, 16), (HYBRID_BATCH, 2, 16))
 # phase k6: (case, B, H, Hkv, S, Skv, D, type, window, q_offset)
 K6_CASES = (
     ("qwen2-moe prefill", 64, 16, 16, 1024, 1024, 128, "bfloat16", None, 0),
@@ -155,6 +184,12 @@ K6_CASES = (
     ("h2o-danube decode f32", 4, 32, 8, 1, 8192, 80, "float32", 4096, 8191),
     ("h2o-danube decode", 4, 32, 8, 1, 8192, 80, "bfloat16", 4096, 8191),
     ("internlm2 train", 4, 16, 8, 2048, 2048, 128, "bfloat16", None, 0),
+    # jamba's attention layer at phase serve_hybrid's inputs: the prefill
+    # over the cache of LM_PROMPT + LM_STEPS rows, the last decode call
+    ("jamba prefill", HYBRID_BATCH, 32, 8, LM_PROMPT, LM_PROMPT + LM_STEPS,
+     128, "bfloat16", None, 0),
+    ("jamba decode", HYBRID_BATCH, 32, 8, 1, LM_PROMPT + LM_STEPS, 128,
+     "bfloat16", None, LM_PROMPT + LM_STEPS - 2),
 )
 
 # the TPU kernel each CUDA kernel replaces
@@ -1476,6 +1511,77 @@ def bf16_step(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126))) - 7)
 
 
+class _Paths:
+    """A model's kernel path and plain path on the same weights and
+    tokens (phases serve_check and hybrid_check): :meth:`run` prefills
+    the first CHECK_PROMPT tokens and decodes the next ``steps``
+    (teacher-forced) through K5 and K6, or, given the plain ``attention``
+    to swap in for K6, through K5's and K6's plain versions; it checks
+    one K6 call per attention layer and one K5 launch per MoE layer and
+    call on the kernel path, none on the plain path."""
+
+    def __init__(self, torch, kern, FA, MH, L, MOE, M, phase: str):
+        self.torch, self.kern, self.L, self.MOE, self.M = (torch, kern, L,
+                                                           MOE, M)
+        self.FA, self.phase = FA, phase
+        self.histogram = (lambda idx, gates, *, num_experts:
+                          MH.moe_histogram_ref(idx, gates, num_experts))
+
+    def run(self, cfg, params, toks, steps, attention=None):
+        L, MOE, M, kern = self.L, self.MOE, self.M, self.kern
+        saved = L.flash_attention, MOE.moe_histogram
+        if attention is not None:
+            L.flash_attention, MOE.moe_histogram = attention, self.histogram
+        try:
+            reset_launches(kern)
+            logits, cache, aux = M.prefill(
+                params, cfg, token_ids=toks[:, :CHECK_PROMPT],
+                max_seq=CHECK_PROMPT + steps)
+            outs, counts = [logits], [aux["expert_counts"]]
+            for t in range(steps):
+                logits, cache, aux = M.decode_step(
+                    params, cfg, cache,
+                    toks[:, CHECK_PROMPT + t:CHECK_PROMPT + t + 1])
+                outs.append(logits)
+                counts.append(aux["expert_counts"])
+            launches = read_launches(kern)
+            fa_calls = launches["flash_attention"] - read_by_kernel(
+                kern)["flash_attention"]["flash_merge"]
+        finally:
+            L.flash_attention, MOE.moe_histogram = saved
+        calls = 0 if attention is not None else 1 + steps
+        kinds = _kinds(M, cfg)
+        want = (calls * kinds.get("moe", 0), calls * kinds.get("attn", 0))
+        check((launches["moe_histogram"], fa_calls) == want,
+              f"{self.phase}: launches {launches} on the "
+              f"{'plain' if attention is not None else 'kernel'} path, "
+              f"{want[0]} K5 and {want[1]} K6 calls expected")
+        return outs, counts
+
+    def compare(self, cfg, params, toks, steps):
+        """The kernel path against the plain path: (the kernel path's
+        logits per call, the plain path's, the numbers)."""
+        torch = self.torch
+        kern_out, kern_counts = self.run(cfg, params, toks, steps)
+        plain_out, plain_counts = self.run(cfg, params, toks, steps,
+                                           self.FA.attention_ref)
+        check(all(bool(torch.isfinite(a).all()) for a in kern_out),
+              f"{self.phase}: a logit is not finite")
+        return kern_out, plain_out, {
+            "batch": CHECK_BATCH, "prompt": CHECK_PROMPT,
+            "decode_steps": steps,
+            "max_abs_logit": max(float(p.float().abs().max())
+                                 for p in plain_out),
+            "max_abs_err_per_call": max_abs_errs(kern_out, plain_out),
+            "expert_counts_equal": all(
+                torch.equal(a, b) for a, b in zip(kern_counts, plain_counts))}
+
+
+def max_abs_errs(a_outs, b_outs) -> list:
+    return [float((a.float() - b.float()).abs().max())
+            for a, b in zip(a_outs, b_outs)]
+
+
 def phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs,
                       device) -> dict:
     """qwen2-moe-a2.7b at full width, two layers, on the card.  The
@@ -1494,65 +1600,14 @@ def phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs,
     import dataclasses
     full = configs.get_config(LM_ARCH)
     out = {"phase": "serve_check", "layers": 2, "d_model": full.d_model}
-    plain = {"attention": lambda q, k, v, **kw: FA.attention_ref(q, k, v,
-                                                                 **kw),
-             "histogram": lambda idx, gates, *, num_experts:
-                 MH.moe_histogram_ref(idx, gates, num_experts)}
-
-    def run(cfg, params, toks, steps, plain_path):
-        """Prefill on the first CHECK_PROMPT tokens, then decode the
-        next ``steps`` of ``toks`` (teacher-forced); checks the launch
-        counts of the path."""
-        saved = L.flash_attention, MOE.moe_histogram
-        if plain_path:
-            L.flash_attention = plain["attention"]
-            MOE.moe_histogram = plain["histogram"]
-        try:
-            reset_launches(kern)
-            logits, cache, aux = M.prefill(
-                params, cfg, token_ids=toks[:, :CHECK_PROMPT],
-                max_seq=CHECK_PROMPT + steps)
-            outs, counts = [logits], [aux["expert_counts"]]
-            for t in range(steps):
-                logits, cache, aux = M.decode_step(
-                    params, cfg, cache,
-                    toks[:, CHECK_PROMPT + t:CHECK_PROMPT + t + 1])
-                outs.append(logits)
-                counts.append(aux["expert_counts"])
-            launches = read_launches(kern)
-            fa_calls = launches["flash_attention"] - read_by_kernel(
-                kern)["flash_attention"]["flash_merge"]
-        finally:
-            L.flash_attention, MOE.moe_histogram = saved
-        n = 0 if plain_path else cfg.num_layers * (1 + steps)
-        check(launches["moe_histogram"] == n and fa_calls == n,
-              f"serve_check: launches {launches} on the "
-              f"{'plain' if plain_path else 'kernel'} path, {n} K5 and "
-              f"{n} K6 calls expected")
-        return outs, counts
-
-    def compare(cfg, params, steps):
-        kern_out, kern_counts = run(cfg, params, toks, steps, False)
-        plain_out, plain_counts = run(cfg, params, toks, steps, True)
-        check(all(bool(torch.isfinite(a).all()) for a in kern_out),
-              "serve_check: a logit is not finite")
-        largest = max(float(p.float().abs().max()) for p in plain_out)
-        errs = [float((a.float() - b.float()).abs().max())
-                for a, b in zip(kern_out, plain_out)]
-        return kern_out, {
-            "batch": CHECK_BATCH, "prompt": CHECK_PROMPT,
-            "decode_steps": steps, "max_abs_logit": largest,
-            "max_abs_err_per_call": errs,
-            "expert_counts_equal": all(
-                torch.equal(a, b) for a, b in zip(kern_counts, plain_counts))}
-
+    paths = _Paths(torch, kern, FA, MH, L, MOE, M, "serve_check")
     gen = torch.Generator(device=device).manual_seed(5)
     toks = torch.randint(0, full.vocab_size, (CHECK_BATCH, CHECK_PROMPT + 4),
                          generator=gen, device=device, dtype=torch.int32)
     with tf32(torch, False):                  # float32 in float32
         cfg = dataclasses.replace(full, num_layers=2)
         params = M.init_params(cfg, 3, device=device)
-        _, res = compare(cfg, params, 3)
+        _, _, res = paths.compare(cfg, params, toks, 3)
         res["tol"] = 4 * bf16_step(res["max_abs_logit"])
         check(max(res["max_abs_err_per_call"]) <= res["tol"],
               f"serve_check: kernel path vs plain path "
@@ -1566,7 +1621,7 @@ def phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs,
             full, num_layers=2, dtype="float32",
             moe=dataclasses.replace(full.moe, capacity_factor=15.0))
         params = M.init_params(cfg, 4, device=device)
-        kern_out, res = compare(cfg, params, 4)
+        kern_out, _, res = paths.compare(cfg, params, toks, 4)
         res["tol"] = 1e-4
         check(max(res["max_abs_err_per_call"]) <= res["tol"],
               f"serve_check: kernel path vs plain path "
@@ -1581,6 +1636,464 @@ def phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs,
     del params
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (PERF.md §4): jamba-v0.1-52b (one full-width
+# period: attention on K6, four MoE layers on K5, seven Mamba scans) and
+# xlstm-1.3b (full width and depth: sLSTM and mLSTM scans, no kernel)
+# ---------------------------------------------------------------------------
+
+def _hybrid_config(configs, **over):
+    """jamba-v0.1-52b at full width, its depth cut to HYBRID_LAYERS."""
+    import dataclasses
+    return dataclasses.replace(configs.get_config(HYBRID_ARCH),
+                               num_layers=HYBRID_LAYERS, **over)
+
+
+def _kinds(M, cfg) -> dict:
+    """Layers per mixer and per feed-forward of ``cfg``."""
+    out: dict = {}
+    for mixer, ffn, _ in M.layer_kinds(cfg):
+        out[mixer] = out.get(mixer, 0) + 1
+        out[ffn or "none"] = out.get(ffn or "none", 0) + 1
+    return out
+
+
+@contextlib.contextmanager
+def _ranges(mods):
+    """Mark each call of the scan (``segmented_scan`` as the mixer
+    modules call it), of attention and of the MoE feed-forward with a
+    ``torch.profiler`` range of that name, for :func:`_split`."""
+    from torch.profiler import record_function
+    saved = []
+
+    def marked(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    for mod, attr, name in mods:
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, marked(name, getattr(mod, attr)))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+RANGES = ("scan", "attention", "moe")
+
+
+def _split(prof, wall: float) -> dict:
+    """One profiled call's time, read from the profiler's raw events
+    (``key_averages`` takes minutes over a prefill's million events):
+    the card's busy seconds (kernels, copies and sets; the ranges' own
+    device rows left out) and idle share; per range of :func:`_ranges`
+    its host seconds and the device seconds of the work launched inside
+    it (a device event belongs to the range whose span holds the host
+    call that launched it, matched by correlation id); K6's and K5's
+    kernels by name; the products as the work launched inside
+    ``aten::mm`` (every projection) and ``aten::bmm`` (the expert FFNs
+    and the scans' einsums)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    spans = {name: [] for name in RANGES + ("aten::mm", "aten::bmm")}
+    launched_at, dev = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", lambda: False)():
+                dev.append(e)
+        elif e.name() in spans:
+            spans[e.name()].append((e.start_ns(), e.end_ns()))
+        elif e.name().startswith("cu"):       # the CUDA API calls
+            launched_at[e.correlation_id()] = e.start_ns()
+    ns = lambda e: e.duration_ns()  # noqa: E731
+    busy = sum(map(ns, dev)) / 1e9
+    check(busy > 0, "recurrent profile: no device time recorded")
+    matched = [(launched_at.get(e.correlation_id()), ns(e)) for e in dev]
+
+    def inside(name):
+        iv = sorted(spans[name])
+        starts = [a for a, _ in iv]
+        total = 0
+        for t, d in matched:
+            i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            if i >= 0 and t <= iv[i][1]:
+                total += d
+        return total / 1e9
+
+    def kern(*subs):
+        return sum(ns(e) for e in dev
+                   if any(x in e.name() for x in subs)) / 1e9
+
+    out = {"wall_s": wall, "device_busy_s": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "device_events": len(dev),
+           "device_events_matched": sum(t is not None for t, _ in matched),
+           "k6_s": kern("flash_mma", "flash_tile", "flash_decode",
+                        "flash_merge"),
+           "k5_s": kern("moe_histogram"),
+           "mm_s": inside("aten::mm"), "bmm_s": inside("aten::bmm")}
+    for name in RANGES:
+        out[f"{name}_device_s"] = inside(name)
+        out[f"{name}_host_s"] = sum(b - a for a, b in spans[name]) / 1e9
+        out[f"{name}_calls"] = len(spans[name])
+    out["scan_device_share"] = out["scan_device_s"] / max(busy, 1e-30)
+    out["scan_host_share"] = out["scan_host_s"] / wall
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name()[:80]] = by_name.get(e.name()[:80], 0) + ns(e)
+    out["top_device_ops"] = sorted(([k, v / 1e9] for k, v in
+                                    by_name.items()),
+                                   key=lambda kv: -kv[1])[:8]
+    return out
+
+
+def _profile_calls(torch, M, mods, cfg, batch: int, prompt: int,
+                   max_seq: int, device) -> dict:
+    """:func:`_split` of one prefill of ``batch`` × ``prompt`` random
+    tokens and of one decode call after a warm one, on ``cfg`` with
+    weights from seed 1 (TF32 off); ``seconds``: the whole of it, the
+    profiler's own processing included."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    start = time.perf_counter()
+    params = M.init_params(cfg, 1, device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=device, dtype=torch.int32)
+    out = {}
+    with tf32(torch, False), _ranges(mods):
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache, _ = M.prefill(params, cfg, token_ids=toks,
+                                         max_seq=max_seq)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["prefill"] = _split(prof, wall)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        logits, cache, _ = M.decode_step(params, cfg, cache, tok)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        with profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.decode_step(params, cfg, cache, tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["decode"] = _split(prof, wall)
+    out["seconds"] = time.perf_counter() - start
+    del params, cache
+    return out
+
+
+def _serve_numbers(out: dict, peak: int, prompt: int) -> dict:
+    """The end-to-end numbers of a ``serve_config`` run."""
+    return {"model": out["model"], "layers": out["layers"],
+            "d_model": out["d_model"], "sessions": out["sessions"],
+            "replicas": out["replicas"],
+            "initial_spread": out["initial_spread"], "batch": out["batch"],
+            "prompt_len": prompt, "steps": out["steps"],
+            "max_seq": out["max_seq"], "init_s": out["init_s"],
+            "prefill_s": out["prefill_s"],
+            "prefill_tokens_per_s": out["batch"] * prompt / out["prefill_s"],
+            "decode_s": out["decode_s"], "decode_calls": out["decode_calls"],
+            "decode_ms_per_call": out["decode_s"] / out["decode_calls"] * 1e3,
+            "decode_tok_per_s": out["decode_tok_per_s"],
+            "max_memory_allocated": peak,
+            "replica_load_cv": out["replica_load_cv"],
+            "rebalances": out["rebalances"],
+            "logits_finite": out["logits_finite"]}
+
+
+def phase_serve_hybrid(torch, kern, LS, L, MOE, M, MO, mods, configs,
+                       device) -> dict:
+    """``launch.serve.serve_config`` on jamba-v0.1-52b at full width
+    (d_model 4096, 32/8 heads, 16 experts top-2, Mamba d_state 16),
+    depth cut to one period of HYBRID_LAYERS (attention, 7 Mamba, 4 MoE
+    and 4 MLP layers), with phase serve's traffic: LM_SESSIONS sessions
+    over LM_REPLICAS replicas, replica 0's batch prefilled at LM_PROMPT
+    tokens and decoded for LM_STEPS.  K6 must launch once per call (its
+    prefill kernel at the prefill, its decode kernel, and the merge if
+    the keys are chunked, at each decode call) and K5 once per MoE layer
+    and call; the kernels' last prefill and decode inputs are held
+    against their plain versions there; then the profile split of one
+    prefill and one decode call (:func:`_profile_calls`)."""
+    cfg = _hybrid_config(configs)
+    kinds = _kinds(M, cfg)
+    check(cfg.d_model == 4096 and cfg.moe.num_experts == 16
+          and kinds == {"attn": 1, "mamba": 7, "moe": 4, "mlp": 4},
+          f"serve_hybrid: not one full-width jamba period ({kinds})")
+    n_params = cfg.param_count()
+    fa = _Recorder(L.flash_attention,
+                   lambda q, *a, **kw: "decode" if q.shape[2] == 1
+                   else "prefill")
+    mh = _Recorder(MOE.moe_histogram, lambda idx, *a, **kw:
+                   "prefill" if idx.shape[0] > HYBRID_BATCH else "decode")
+    logs = []
+    _free_card(torch)
+    L.flash_attention, MOE.moe_histogram = fa, mh
+    try:
+        with tf32(torch, False):              # the router's float32 product
+            reset_launches(kern)              # counts from here …
+            out = LS.serve_config(cfg, sessions=LM_SESSIONS,
+                                  prompt_len=LM_PROMPT, steps=LM_STEPS,
+                                  replicas=LM_REPLICAS, device=device,
+                                  log=logs.append)
+            launches = read_launches(kern)    # … to here
+            by_kernel = read_by_kernel(kern)
+    finally:
+        L.flash_attention, MOE.moe_histogram = fa.fn, mh.fn
+    peak = torch.cuda.max_memory_allocated()
+    calls = 1 + out["decode_calls"]
+    FA, MH = kern["flash_attention"], kern["moe_histogram"]
+    (q, k, _), fkw = fa.calls["decode"]
+    merge = int(FA.ops.decode_chunks(FA.ops.build(), q, k, **fkw) > 1)
+    decodes = kinds["attn"] * (calls - 1)
+    check(launches["moe_histogram"] == kinds["moe"] * calls
+          and by_kernel["flash_attention"] == {
+              "flash_decode": decodes, "flash_merge": merge * decodes,
+              "flash_tile": 0, "flash_mma": kinds["attn"]}
+          and launches["flash_attention"]
+          == kinds["attn"] + (1 + merge) * decodes,
+          f"serve_hybrid: launches {launches} ({by_kernel}), "
+          f"{kinds['moe']} K5 and {kinds['attn']} K6 calls per call "
+          f"expected over {calls} calls")
+    check(all(launches[n] == 0 for n in ("stats_update", "spatial_match",
+                                         "keyword_match", "knn_match")),
+          f"serve_hybrid: launches {launches}")
+    check(out["logits_finite"], "serve_hybrid: a logit is not finite")
+    check(out["batch"] == HYBRID_BATCH
+          and out["tokens"].shape == (HYBRID_BATCH, LM_STEPS),
+          f"serve_hybrid: batch {out['batch']}, {HYBRID_BATCH} expected")
+    counts = out["expert_counts"]
+    top = cfg.moe.top_k * kinds["moe"]
+    check(counts[0].sum() == HYBRID_BATCH * LM_PROMPT * top
+          and (counts[1:].sum(1) == HYBRID_BATCH * top).all(),
+          "serve_hybrid: expert counts do not add up to the assignments")
+    # K5 and K6 at the path's own last prefill and decode inputs, against
+    # their plain versions; phases k5 and k6 time them at these shapes
+    at_path = {}
+    for call in ("prefill", "decode"):
+        (idx, gates), kw = mh.calls[call]
+        (q, k, v), fkw = fa.calls[call]
+        case = next(c for c in K6_CASES if c[0] == f"jamba {call}")
+        check(list(q.shape) == [case[1], case[2], case[4], case[6]]
+              and list(k.shape) == [case[1], case[3], case[5], case[6]]
+              and fkw["q_offset"] == case[9]
+              and (idx.shape[0], idx.shape[1], kw["num_experts"])
+              in K5_SHAPES,
+              f"serve_hybrid: the {call} inputs {tuple(q.shape)} "
+              f"{tuple(k.shape)} {fkw} {tuple(idx.shape)} are not phase "
+              f"k5's and k6's jamba cases")
+        at_path[call] = {
+            "moe_histogram": {"shape": list(idx.shape),
+                              **k5_row(torch, MH, MO, idx, gates,
+                                       kw["num_experts"])},
+            "flash_attention": {"q": list(q.shape), "kv": list(k.shape),
+                                **fkw, **k6_row(torch, FA, q, k, v, **fkw,
+                                                timed=False)}}
+    del fa, mh, out["tokens"]
+    res = {"phase": "serve_hybrid", "arch": HYBRID_ARCH,
+           "cut": {"num_layers": [configs.get_config(HYBRID_ARCH).num_layers,
+                                  HYBRID_LAYERS],
+                   "why": "51.6 B parameters (~103 GB in bf16) do not fit "
+                          "the 80 GB card; one whole period kept"},
+           "params": n_params, "layers_by_kind": kinds,
+           **_serve_numbers(out, peak, LM_PROMPT),
+           "launches": launches, "launches_by_kernel": by_kernel,
+           "k5_per_call": launches["moe_histogram"] / calls,
+           "k6_calls_per_call": (launches["flash_attention"]
+                                 - by_kernel["flash_attention"]["flash_merge"])
+           / calls,
+           "ep_moves": out["ep_moves"], "ep_imbalance": out["ep_imbalance"],
+           "kernels_at_path_inputs": at_path, "log": logs}
+    _free_card(torch)
+    res["profile"] = _profile_calls(torch, M, mods, cfg, HYBRID_BATCH,
+                                    LM_PROMPT, LM_PROMPT + LM_STEPS, device)
+    emit(res)
+    _free_card(torch)
+    return {"launches": launches, "by_kernel": by_kernel}
+
+
+def phase_serve_ssm(torch, kern, LS, M, mods, configs, device) -> dict:
+    """``launch.serve.serve_config`` on xlstm-1.3b at full width and
+    depth (48 layers: 6 sLSTM, 42 mLSTM; d_model 2048, 4 heads, no FFN):
+    SSM_SESSIONS sessions over LM_REPLICAS replicas, replica 0's batch
+    prefilled at SSM_PROMPT tokens and decoded for SSM_DECODE_CALLS
+    calls.  No kernel of the port runs (its mixers are scans, and it has
+    no attention and no MoE); then the profile split of one prefill and
+    one decode call."""
+    cfg = configs.get_config(SSM_ARCH)
+    kinds = _kinds(M, cfg)
+    check(cfg.d_model == 2048 and kinds == {"slstm": 6, "mlstm": 42,
+                                            "none": 48},
+          f"serve_ssm: not xlstm-1.3b at full width and depth ({kinds})")
+    logs = []
+    _free_card(torch)
+    with tf32(torch, False):
+        reset_launches(kern)                  # counts from here …
+        out = LS.serve_config(cfg, sessions=SSM_SESSIONS,
+                              prompt_len=SSM_PROMPT,
+                              steps=SSM_DECODE_CALLS + 1,
+                              replicas=LM_REPLICAS, device=device,
+                              log=logs.append)
+        launches = read_launches(kern)        # … to here
+    peak = torch.cuda.max_memory_allocated()
+    check(all(n == 0 for n in launches.values()),
+          f"serve_ssm: a kernel launched ({launches})")
+    check(out["logits_finite"], "serve_ssm: a logit is not finite")
+    check(out["tokens"].shape == (out["batch"], SSM_DECODE_CALLS + 1),
+          "serve_ssm: token shape")
+    res = {"phase": "serve_ssm", "arch": SSM_ARCH, "cut": None,
+           "params": cfg.param_count(), "layers_by_kind": kinds,
+           **_serve_numbers(out, peak, SSM_PROMPT), "launches": launches,
+           "log": logs}
+    _free_card(torch)
+    res["profile"] = _profile_calls(torch, M, mods, cfg, out["batch"],
+                                    SSM_PROMPT,
+                                    SSM_PROMPT + SSM_DECODE_CALLS + 1, device)
+    emit(res)
+    _free_card(torch)
+    return res
+
+
+# the recurrent families' bfloat16 bound, in bfloat16 steps at the largest
+# logit: 16, not serve_check's 4.  One bf16 step of K6's output (it and
+# its plain version each round once) reaches the logits through seven
+# Mamba scans and four MoE routers, which carry it further than phase
+# serve_check's attention layers do; tests/test_torch_models.py holds
+# xlstm's bf16 logits to the JAX package's at the same 16 steps
+# (XLSTM_BF16_TOL).  Phase hybrid_check measures that reach on the plain
+# path itself: one element of its prefill attention output moved by one
+# bf16 step (``plain_vs_nudged_max_abs_err``)
+RECURRENT_BF16_STEPS = 16
+
+
+def phase_hybrid_check(torch, kern, FA, MH, L, MOE, M, configs,
+                       device) -> dict:
+    """jamba at full width, one period, on the card, B = CHECK_BATCH:
+    (1) bfloat16, the kernel path (K5 and K6) against the plain path
+    (``moe_histogram_ref`` / ``attention_ref`` swapped in) on the same
+    weights and tokens, a prefill and three decode steps, within
+    RECURRENT_BF16_STEPS bfloat16 steps at the largest logit, beside the
+    plain path against itself with one element of its prefill attention
+    output moved by one bf16 step; (2) float32 with the capacity factor
+    at 16 (no token dropped, top-2 of 16), within 1e-4, expert counts
+    equal, and the last decode step against a full ``forward`` within
+    2e-2.  Then xlstm-1.3b at full width cut to one period
+    (SSM_CHECK_LAYERS), float32: a prefill of SSM_CHECK_PROMPT tokens
+    and SSM_CHECK_STEPS decode steps on the card against the same on
+    the CPU, logits and every cache tensor within 1e-4."""
+    import dataclasses
+    out = {"phase": "hybrid_check", "layers": HYBRID_LAYERS}
+    paths = _Paths(torch, kern, FA, MH, L, MOE, M, "hybrid_check")
+
+    def nudged_ref(q, k, v, **kw):
+        """The plain attention, one element of a prefill output moved up
+        by one step of its type."""
+        o = FA.attention_ref(q, k, v, **kw)
+        if q.shape[2] > 1:
+            flat = o.view(-1)
+            flat[0] = flat[0] + bf16_step(abs(float(flat[0])))
+        return o
+
+    full = configs.get_config(HYBRID_ARCH)
+    gen = torch.Generator(device=device).manual_seed(5)
+    toks = torch.randint(0, full.vocab_size, (CHECK_BATCH, CHECK_PROMPT + 4),
+                         generator=gen, device=device, dtype=torch.int32)
+    _free_card(torch)
+    with tf32(torch, False):
+        cfg = _hybrid_config(configs)
+        params = M.init_params(cfg, 3, device=device)
+        _, plain_out, res = paths.compare(cfg, params, toks, 3)
+        nudged, _ = paths.run(cfg, params, toks, 3, nudged_ref)
+        res["plain_vs_nudged_max_abs_err_per_call"] = max_abs_errs(
+            nudged, plain_out)
+        res["tol"] = RECURRENT_BF16_STEPS * bf16_step(res["max_abs_logit"])
+        res["tol_bf16_steps"] = RECURRENT_BF16_STEPS
+        check(max(res["max_abs_err_per_call"]) <= res["tol"],
+              f"hybrid_check: kernel path vs plain path "
+              f"{max(res['max_abs_err_per_call'])} above {res['tol']} "
+              f"(bf16)")
+        out["bf16"] = res
+        del params, plain_out, nudged
+        _free_card(torch)
+
+        cfg = _hybrid_config(configs, dtype="float32", moe=dataclasses.replace(
+            full.moe, capacity_factor=16.0))
+        params = M.init_params(cfg, 4, device=device)
+        kern_out, _, res = paths.compare(cfg, params, toks, 4)
+        res["tol"] = 1e-4
+        check(max(res["max_abs_err_per_call"]) <= res["tol"]
+              and res["expert_counts_equal"],
+              f"hybrid_check: kernel path vs plain path "
+              f"{max(res['max_abs_err_per_call'])} above 1e-4 or expert "
+              f"counts differ (float32)")
+        fwd, _ = M.forward(params, cfg, token_ids=toks)
+        err = float((kern_out[-1][:, 0] - fwd[:, -1]).abs().max())
+        check(err < 2e-2, f"hybrid_check: decode vs forward {err} "
+              f"(float32)")
+        out["float32"] = {**res, "decode_vs_forward_max_abs_err": err,
+                          "decode_vs_forward_tol": 2e-2,
+                          "capacity_factor": 16.0,
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        del params, fwd, kern_out
+        _free_card(torch)
+        out["ssm_float32"] = _ssm_card_vs_cpu(torch, M, configs, device)
+    emit(out)
+    _free_card(torch)
+    return out
+
+
+def _ssm_card_vs_cpu(torch, M, configs, device) -> dict:
+    """xlstm-1.3b at full width, SSM_CHECK_LAYERS layers, float32: the
+    same weights (made on the CPU, copied) and tokens through a prefill
+    and SSM_CHECK_STEPS decode steps on the card and on the CPU; logits
+    and every cache tensor within 1e-4."""
+    import dataclasses
+
+    from repro_torch import tree as TR
+    cfg = dataclasses.replace(configs.get_config(SSM_ARCH),
+                              num_layers=SSM_CHECK_LAYERS, dtype="float32")
+    cpu = M.init_params(cfg, 2, device="cpu")
+    card = TR.map(lambda t: t.to(device), cpu)
+    gen = torch.Generator().manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SSM_CHECK_BATCH, SSM_CHECK_PROMPT + SSM_CHECK_STEPS),
+                         generator=gen, dtype=torch.int32)
+    runs = []
+    for params, dev in ((cpu, "cpu"), (card, device)):
+        t0 = time.perf_counter()
+        logits, cache, _ = M.prefill(
+            params, cfg, token_ids=toks[:, :SSM_CHECK_PROMPT].to(dev),
+            max_seq=SSM_CHECK_PROMPT + SSM_CHECK_STEPS)
+        outs = [logits]
+        for t in range(SSM_CHECK_STEPS):
+            i = SSM_CHECK_PROMPT + t
+            logits, cache, _ = M.decode_step(params, cfg, cache,
+                                             toks[:, i:i + 1].to(dev))
+            outs.append(logits)
+        runs.append((outs, cache, time.perf_counter() - t0))
+    (c_out, c_cache, c_s), (g_out, g_cache, g_s) = runs
+    errs = [float((a - b.cpu()).abs().max()) for a, b in zip(c_out, g_out)]
+    state_errs = {name: float((c_cache[name] - g_cache[name].cpu())
+                              .abs().max())
+                  for name in c_cache if name != "offset"}
+    check(all(bool(torch.isfinite(o).all()) for o in g_out),
+          "hybrid_check: an xlstm logit on the card is not finite")
+    check(max(errs) <= 1e-4 and max(state_errs.values()) <= 1e-4,
+          f"hybrid_check: xlstm card vs CPU {errs} {state_errs} above 1e-4")
+    return {"layers": SSM_CHECK_LAYERS, "d_model": cfg.d_model,
+            "batch": SSM_CHECK_BATCH, "prompt": SSM_CHECK_PROMPT,
+            "decode_steps": SSM_CHECK_STEPS, "tol": 1e-4,
+            "max_abs_logit": max(float(o.abs().max()) for o in c_out),
+            "max_abs_err_per_call": errs, "state_max_abs_err": state_errs,
+            "cpu_s": c_s, "card_s": g_s}
 
 
 # ---------------------------------------------------------------------------
@@ -2095,8 +2608,10 @@ def main() -> int:
     from repro_torch.launch import train as LT
     from repro_torch import train as TR
     from repro_torch.models import layers as L
+    from repro_torch.models import mamba as MB
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
+    from repro_torch.models import xlstm as XL
     kern = {"stats_update": SU, "spatial_match": SM, "keyword_match": KM,
             "knn_match": KN, "moe_histogram": MH, "flash_attention": FA}
 
@@ -2184,6 +2699,16 @@ def main() -> int:
     emit({"serve_kernels": lm})
     del serve
     torch.cuda.empty_cache()
+    # the recurrent families; each scan, attention and MoE call marked
+    # for the profile split
+    mods = ((MB, "segmented_scan", "scan"), (XL, "segmented_scan", "scan"),
+            (L, "attention", "attention"), (MOE, "moe_ffn", "moe"))
+    hybrid = phase_serve_hybrid(torch, kern, LS, L, MOE, M, MO, mods,
+                                configs, device)
+    phase_hybrid_check(torch, kern, FA, MH, L, MOE, M, configs, device)
+    phase_serve_ssm(torch, kern, LS, M, mods, configs, device)
+    hy_launches = hybrid["launches"]
+    hy_by = hybrid["by_kernel"]["flash_attention"]
     phase_train(torch, kern, LT, M, configs, device)
     phase_train_check(torch, kern, FA, L, M, TR, configs, device)
     phase_train_moe(torch, kern, TR, M, MH, MOE, configs, device)
@@ -2197,9 +2722,11 @@ def main() -> int:
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
 
-    def row(name, launches, err, t, library_ms=None, source=None):
+    def row(name, launches, err, t, library_ms=None, source=None,
+            by_path=None):
         """A kernel's row; ``launches`` a count or, for a wrapper of more
-        than one kernel, the split by kernel that the row sums."""
+        than one kernel, the split by kernel that the row sums; with
+        ``by_path``, the counts of each path it sums."""
         source = source or name
         split = launches if isinstance(launches, dict) else None
         return {"name": name, "route": "cuda",
@@ -2207,6 +2734,7 @@ def main() -> int:
                 "replaces": REPLACES[source],
                 "launches": sum(split.values()) if split else launches,
                 **({"launches_by_kernel": split} if split else {}),
+                **({"launches_by_path": by_path} if by_path else {}),
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": library_ms}
@@ -2220,24 +2748,34 @@ def main() -> int:
             max(worst_k3, k3["max_abs_err"]), k3),
         row("knn_match", match["by_kernel"],
             max(worst_k4, k4["max_abs_err"]), k4),
-        row("moe_histogram", lm_launches["moe_histogram"],
+        row("moe_histogram",
+            lm_launches["moe_histogram"] + hy_launches["moe_histogram"],
             max(worst_k5, lm["prefill"]["moe_histogram"]["max_abs_err"]),
             lm["prefill"]["moe_histogram"],
-            lm["prefill"]["moe_histogram"]["library_ms"]),
+            lm["prefill"]["moe_histogram"]["library_ms"],
+            by_path={"serve": lm_launches["moe_histogram"],
+                     "serve_hybrid": hy_launches["moe_histogram"]}),
         row("flash_attention",
-            {n: fa_by[n] for n in ("flash_mma", "flash_tile")},
+            {n: fa_by[n] + hy_by[n] for n in ("flash_mma", "flash_tile")},
             max(worst_k6["prefill"],
                 lm["prefill"]["flash_attention"]["max_abs_err"]),
             lm["prefill"]["flash_attention"],
-            lm["prefill"]["flash_attention"]["library_ms"]),
+            lm["prefill"]["flash_attention"]["library_ms"],
+            by_path={p: sum(by[n] for n in ("flash_mma", "flash_tile"))
+                     for p, by in (("serve", fa_by),
+                                   ("serve_hybrid", hy_by))}),
         # the same source's decode kernels at the serve path's decode input
         row("flash_attention_decode",
-            {n: fa_by[n] for n in ("flash_decode", "flash_merge")},
+            {n: fa_by[n] + hy_by[n] for n in ("flash_decode",
+                                              "flash_merge")},
             max(worst_k6["decode"],
                 lm["decode"]["flash_attention"]["max_abs_err"]),
             lm["decode"]["flash_attention"],
             lm["decode"]["flash_attention"]["library_ms"],
-            source="flash_attention")]})
+            source="flash_attention",
+            by_path={p: sum(by[n] for n in ("flash_decode", "flash_merge"))
+                     for p, by in (("serve", fa_by),
+                                   ("serve_hybrid", hy_by))})]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,7 +13,8 @@ Usage (on the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \
       --smoke --sessions 64 --steps 16 [--replicas 4] [--device cpu]
 
-:func:`serve` runs the same flow and returns its numbers.
+:func:`serve` runs the same flow and returns its numbers;
+:func:`serve_config` runs it on a ``ModelConfig`` the caller built.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 from .. import configs
 from ..distributed import ExpertBalancer
 from ..models import init_params
+from ..models.config import ModelConfig
 from ..models.model import decode_step, prefill
 from ..serve import SwarmRequestRouter
 from ..telemetry.timers import Stopwatch
@@ -44,9 +46,20 @@ def serve(arch: str = "internlm2_1_8b", *, smoke: bool = False,
     random tokens and decode ``steps`` tokens greedily (``steps − 1``
     decode calls after the prefill), routing and rebalancing every step;
     ``log`` gets the lines the command prints.  Host seconds are taken
-    with the device drained."""
+    with the device drained.  :func:`serve_config` with ``arch``'s
+    config (its smoke config if ``smoke``)."""
     cfg = (configs.get_smoke_config(arch) if smoke
            else configs.get_config(arch))
+    return serve_config(cfg, sessions=sessions, prompt_len=prompt_len,
+                        steps=steps, replicas=replicas, seed=seed,
+                        device=device, log=log)
+
+
+def serve_config(cfg: ModelConfig, *, sessions: int = 64,
+                 prompt_len: int = 32, steps: int = 16, replicas: int = 4,
+                 seed: int = 0, device="cuda", log=print) -> dict:
+    """:func:`serve`'s flow on the model ``cfg`` (a config of
+    ``configs``, or one cut from it)."""
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only — no decode path")
     with Stopwatch() as sw_init:

@@ -78,7 +78,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Exact parameter count (for roofline MODEL_FLOPS), from the
-        port's own parameter spec (families dense, moe, vlm, audio)."""
+        port's own parameter spec."""
         import numpy as np
         from . import layers as _l
         from . import model as _m

@@ -11,8 +11,8 @@ The reference's XLA attention, ``_sdpa_direct`` and the query-chunked
 ``_sdpa_chunked``, has its twins here: they are not on the forward
 path, but K6's backward pass recomputes attention through them
 (:func:`sdpa_grad`), as the reference's gradient does.
-``segmented_scan`` has no counterpart: the recurrent mixers that need
-it are not ported yet.
+``segmented_scan`` runs the recurrent mixers' scans (``mamba.py``,
+``xlstm.py``) as a Python loop over the time axis.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import tree as T
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig
 
@@ -66,6 +67,54 @@ def spec_leaves(spec):
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Segmented recurrence scan (memory-bounded backward for SSM/LSTM layers)
+# ---------------------------------------------------------------------------
+
+RECURRENCE_SEGMENT = 256
+
+
+def _slices(xs):
+    """The per-step inputs of ``xs`` (a tuple or dict of tensors, each
+    with the time axis first): a list over the steps."""
+    if isinstance(xs, dict):
+        return [dict(zip(xs, row))
+                for row in zip(*(x.unbind(0) for x in xs.values()))]
+    return list(zip(*(x.unbind(0) for x in xs)))
+
+
+def _scan(step, carry, xs):
+    """``lax.scan(step, carry, xs)`` as a Python loop: ``step(carry,
+    x_t) → (carry, y_t)`` with y_t a tensor, stacked along a new first
+    axis."""
+    ys = []
+    for x_t in _slices(xs):
+        carry, y = step(carry, x_t)
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+def segmented_scan(step, carry, xs, seg_len: int = RECURRENCE_SEGMENT):
+    """``lax.scan(step, carry, xs)`` with chunked rematerialization, as
+    the reference's.  A loop over the time axis (:func:`_scan`).  When
+    autograd records (grad mode on and an input that requires grad) and
+    the length is a multiple of ``seg_len`` past one segment, each
+    segment runs under ``torch.utils.checkpoint``: the backward keeps
+    the segment-boundary carries alone (the reference's
+    ``nothing_saveable``) and recomputes inside each segment."""
+    length = T.leaves(xs)[0].shape[0]
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in T.leaves((carry, xs)))
+    if not records or length % seg_len != 0 or length <= seg_len:
+        return _scan(step, carry, xs)
+    ys = []
+    for lo in range(0, length, seg_len):
+        seg = T.map(lambda x: x[lo:lo + seg_len], xs)
+        carry, y = checkpoint(_scan, step, carry, seg, use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +316,19 @@ def mlp_spec(cfg: ModelConfig, d_ff: int | None = None):
         "w_up": leaf((d, f), (P.EMBED, P.FF)),
         "w_down": leaf((f, d), (P.FF, P.EMBED)),
     }
+
+
+def sigmoid(x):
+    """``jax.nn.sigmoid``'s formula, 1 / (1 + exp(−x)), each operation
+    rounded to x's type as XLA rounds it: in bfloat16 it differs from
+    ``torch.sigmoid`` (one rounding of the float32 value) by a step on
+    about a third of the inputs."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    """``jax.nn.silu``: x · :func:`sigmoid` (x)."""
+    return x * sigmoid(x)
 
 
 def gelu(x):

@@ -1,0 +1,109 @@
+"""Mamba (selective SSM) block — the SSM mixer of the jamba hybrid.
+
+The JAX package's ``models/mamba.py`` in PyTorch, op for op.  The
+selective scan over the sequence runs through ``layers.segmented_scan``
+(a Python loop over the time axis) with the (B, d_inner, d_state)
+float32 state as carry; no (S, d_inner, d_state) tensor is ever
+materialized.  The scan's inputs ride in the compute type and are
+upcast per step, as in the reference ("xs ride in bf16"): skipping that
+rounding drifts from it in bfloat16.  ``a = −exp(a_log)``,
+``dt_proj_b`` and ``d_skip`` are used in float32; the causal conv is the
+reference's shifted multiply-add sum in the compute type, and SiLU is
+``jax.nn.silu``'s formula (``layers.silu``).
+
+Decode is the O(1) single-step state update.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import P, leaf, segmented_scan, silu
+
+
+def _dims(cfg: ModelConfig):
+    m = cfg.mamba
+    d_inner = m.expand * cfg.d_model
+    dt_rank = m.dt_rank or (cfg.d_model + 15) // 16
+    return m, d_inner, dt_rank
+
+
+def mamba_spec(cfg: ModelConfig):
+    m, d_inner, dt_rank = _dims(cfg)
+    d = cfg.d_model
+    return {
+        "in_proj": leaf((d, 2 * d_inner), (P.EMBED, P.FF)),
+        "conv_w": leaf((m.d_conv, d_inner), (None, P.FF)),
+        "conv_b": leaf((d_inner,), (P.FF,)),
+        "x_proj": leaf((d_inner, dt_rank + 2 * m.d_state), (P.FF, None)),
+        "dt_proj_w": leaf((dt_rank, d_inner), (None, P.FF)),
+        "dt_proj_b": leaf((d_inner,), (P.FF,)),
+        "a_log": leaf((d_inner, m.d_state), (P.FF, None)),
+        "d_skip": leaf((d_inner,), (P.FF,)),
+        "out_proj": leaf((d_inner, d), (P.FF, P.EMBED)),
+    }
+
+
+def _ssm_inputs(p, xz, cfg: ModelConfig):
+    """Shared pre-scan computation.  xz (B, S, d_inner) post-conv/silu →
+    (dt, a, b_t, c_t), all float32."""
+    m, d_inner, dt_rank = _dims(cfg)
+    proj = xz @ p["x_proj"].to(xz.dtype)
+    dt_in = proj[..., :dt_rank]
+    b_t = proj[..., dt_rank:dt_rank + m.d_state].float()
+    c_t = proj[..., dt_rank + m.d_state:].float()
+    dt = F.softplus((dt_in @ p["dt_proj_w"].to(xz.dtype)).float()
+                    + p["dt_proj_b"].float())
+    a = -torch.exp(p["a_log"].float())                   # (d_inner, d_state)
+    return dt, a, b_t, c_t
+
+
+def _conv1d(p, x, d_conv: int, state=None):
+    """Causal depthwise conv.  x (B, S, C).  With ``state`` (B, d_conv−1,
+    C) runs incrementally; returns (y, new_state)."""
+    if state is not None:
+        window = torch.cat([state, x], 1)               # (B, d_conv-1+S, C)
+    else:
+        window = F.pad(x, (0, 0, d_conv - 1, 0))
+    new_state = window[:, -(d_conv - 1):]
+    w = p["conv_w"].to(x.dtype)                         # (d_conv, C)
+    s = x.shape[1]
+    y = sum(window[:, i:i + s] * w[i] for i in range(d_conv))
+    return y + p["conv_b"].to(x.dtype), new_state
+
+
+def mamba_block(p, x, cfg: ModelConfig, state=None):
+    """x (B, S, d_model) → (out, new_state).
+
+    state = (ssm_h (B, d_inner, d_state) f32, conv (B, d_conv−1, d_inner))
+    for incremental decode; None for full-sequence processing."""
+    m, d_inner, _ = _dims(cfg)
+    dtype = x.dtype
+    xi, z = (x @ p["in_proj"].to(dtype)).chunk(2, -1)
+    conv_state = state[1] if state is not None else None
+    xi, new_conv = _conv1d(p, xi, m.d_conv, conv_state)
+    xi = silu(xi)
+    dt, a, b_t, c_t = _ssm_inputs(p, xi, cfg)
+
+    h0 = (state[0] if state is not None
+          else torch.zeros((x.shape[0], d_inner, m.d_state),
+                           dtype=torch.float32, device=x.device))
+
+    def step(h, inp):
+        dt_t, b_tt, c_tt, x_tt = (t.float() for t in inp)
+        da = torch.exp(dt_t[..., None] * a)              # (B, C, N)
+        h = da * h + (dt_t * x_tt)[..., None] * b_tt[:, None, :]
+        y = torch.einsum("bcn,bn->bc", h, c_tt)
+        return h, y.to(dtype)
+
+    xs = tuple(t.to(dtype).transpose(0, 1) for t in (dt, b_t, c_t, xi))
+    h_last, ys = segmented_scan(step, h0, xs)
+    y = ys.transpose(0, 1).float() + xi.float() * p["d_skip"].float()
+    y = y.to(dtype) * silu(z)
+    return y @ p["out_proj"].to(dtype), (h_last, new_conv)
+
+
+def mamba_state_spec(cfg: ModelConfig, batch: int):
+    m, d_inner, _ = _dims(cfg)
+    return ((batch, d_inner, m.d_state), (batch, m.d_conv - 1, d_inner))

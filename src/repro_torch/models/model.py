@@ -1,8 +1,9 @@
 """Model assembly: the JAX package's ``models/model.py`` in PyTorch, for
-the families whose mixer is attention — ``dense``, ``moe``, ``vlm``
-(patch-embedding frontend stub) and ``audio`` (encoder-only, frame
-frontend stub).  ``hybrid`` and ``ssm`` raise ``NotImplementedError``:
-their Mamba and xLSTM mixers are not ported yet (ROADMAP Queue 1 item 9).
+all ten architectures — the attention families ``dense``, ``moe``,
+``vlm`` (patch-embedding frontend stub) and ``audio`` (encoder-only,
+frame frontend stub), ``hybrid`` (jamba: attention and Mamba mixers,
+MLP and MoE feed-forwards) and ``ssm`` (xlstm: sLSTM and mLSTM mixers,
+no feed-forward).
 
 Entry points, as in the reference:
   forward(...)      — full-sequence logits (+ MoE aux)
@@ -16,11 +17,14 @@ the init scales and the parameter count).  The parameters themselves are
 per-layer dictionaries (``params["layers"][i]``) rather than arrays
 stacked over periods: PyTorch runs a Python loop over layers, and a
 stacked float32 copy of the experts would double the weights' memory.
-Weights are stored once in the compute type, except the router and the
-norm scales, which stay float32 — the values the reference's per-use
-casts give.  The KV cache is (layers, B, Hkv, max_seq, Dh) per tensor,
-the layout kernel K6 reads; ``decode_step`` writes it in place and its
-offset is a Python int.  Training keeps float32 master weights (the
+Weights are stored once in the compute type, except the router, the
+norm scales and the recurrences' ``a_log``, ``d_skip``, ``dt_proj_b``
+and ``r_*``, which stay float32 — the values the reference's per-use
+casts give.  The cache keeps one tensor per state kind, its leading
+axis the index among the layers of that mixer (:func:`cache_spec`);
+K and V are (attention layers, B, Hkv, max_seq, Dh), the layout kernel
+K6 reads.  ``decode_step`` writes every state in place and its offset
+is a Python int.  Training keeps float32 master weights (the
 reference's "params are fp32 masters"): ``init_params(...,
 dtype=torch.float32)``; every product casts its weight to the compute
 type at use.  ``remat`` names the reference's checkpoint policies and
@@ -36,10 +40,12 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import layers as L
+from . import mamba as MB
 from . import moe as MOE
+from . import xlstm as X
 from .config import ModelConfig
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
 # ---------------------------------------------------------------------------
 # Period patterns
@@ -70,29 +76,38 @@ def num_periods(cfg: ModelConfig) -> int:
     return cfg.num_layers // plen
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's Mamba/xLSTM mixers are "
-            "not ported to PyTorch yet (ROADMAP Queue 1 item 9)")
+def layer_kinds(cfg: ModelConfig):
+    """Per layer, (mixer, ffn, index among the model's layers of that
+    mixer): the index a layer's state has in its kind's cache tensor."""
+    pat, seen, out = period_pattern(cfg), {}, []
+    for i in range(cfg.num_layers):
+        mixer, ffn = pat[i % len(pat)]
+        out.append((mixer, ffn, seen.get(mixer, 0)))
+        seen[mixer] = seen.get(mixer, 0) + 1
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Param spec / init
 # ---------------------------------------------------------------------------
 
-def _block_spec(cfg: ModelConfig, ffn: str):
+_MIXER_SPECS = {"attn": L.attention_spec, "mamba": MB.mamba_spec,
+                "mlstm": X.mlstm_spec, "slstm": X.slstm_spec}
+
+
+def _block_spec(cfg: ModelConfig, mixer: str, ffn: str | None):
     d = cfg.d_model
-    return {"norm1": L.rmsnorm_spec(d), "attn": L.attention_spec(cfg),
-            "norm2": L.rmsnorm_spec(d),
-            "ffn": MOE.moe_spec(cfg) if ffn == "moe" else L.mlp_spec(cfg)}
+    spec = {"norm1": L.rmsnorm_spec(d), mixer: _MIXER_SPECS[mixer](cfg)}
+    if ffn is not None:
+        spec["norm2"] = L.rmsnorm_spec(d)
+        spec["ffn"] = MOE.moe_spec(cfg) if ffn == "moe" else L.mlp_spec(cfg)
+    return spec
 
 
 def param_spec(cfg: ModelConfig):
     """The reference's spec: block leaves stacked over the periods."""
-    _require_ported(cfg)
-    period = {f"pos{i}": _block_spec(cfg, ffn)
-              for i, (_, ffn) in enumerate(period_pattern(cfg))}
+    period = {f"pos{i}": _block_spec(cfg, mixer, ffn)
+              for i, (mixer, ffn) in enumerate(period_pattern(cfg))}
     n_per = num_periods(cfg)
 
     def stack(spec):
@@ -111,10 +126,33 @@ def param_spec(cfg: ModelConfig):
     return spec
 
 
+# leaves the reference casts to float32 at every use
+_FLOAT32_LEAVES = ("router", "a_log", "d_skip", "dt_proj_b", "r_z", "r_i",
+                   "r_f", "r_o")
+
+
 def keeps_float32(path) -> bool:
-    """The router and the norm scales are used in float32."""
-    return path[-1] == "router" or (path[-1] == "scale"
-                                    and "norm" in "/".join(path))
+    """The router, the norm scales and the recurrences' ``a_log``,
+    ``d_skip``, ``dt_proj_b`` and ``r_*`` are used in float32."""
+    return path[-1] in _FLOAT32_LEAVES or (path[-1] == "scale"
+                                           and "norm" in "/".join(path))
+
+
+def _constant_init(path, shape):
+    """The reference's fixed initial values, as a float32 tensor of one
+    layer's ``shape`` (None for a random leaf): norm scales, conv and
+    dt biases and the sLSTM's z, i, o biases 0, the forget bias 1,
+    ``a_log`` = log(1 … d_state) along its last axis, ``d_skip`` 1."""
+    name = path[-1]
+    if (name == "scale" and "norm" in "/".join(path)) or name in (
+            "conv_b", "dt_proj_b", "b_z", "b_i", "b_o"):
+        return torch.zeros(shape)
+    if name in ("b_f", "d_skip"):
+        return torch.ones(shape)
+    if name == "a_log":
+        base = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32))
+        return base.expand(shape).clone()
+    return None
 
 
 def _set(tree: dict, path, value):
@@ -125,8 +163,8 @@ def _set(tree: dict, path, value):
 
 def empty_params(cfg: ModelConfig):
     """The port's parameter tree with every layer's dictionary in place:
-    ``{"embed", "layers": [ {norm1, attn, norm2, ffn} ] * L, "final_norm",
-    "lm_head"?}``."""
+    ``{"embed", "layers": [ {norm1, <mixer>, norm2?, ffn?} ] * L,
+    "final_norm", "lm_head"?}``."""
     return {"layers": [{} for _ in range(cfg.num_layers)]}
 
 
@@ -143,15 +181,17 @@ def place(tree: dict, path, value, n_pos: int = 1, period: int = 0):
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 dtype: torch.dtype | None = None):
-    """Random parameters by the reference's rule: norm scales 0 (used as
-    1 + scale), embeddings N(0, 0.02²), every other leaf N(0, 1/fan_in)
-    with fan_in the product of all but the last dimension of the
-    *stacked* leaf, period axis included.  Drawn in float32 from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``, one layer at a
-    time, and stored in ``dtype`` (the compute type by default; the
-    router and norm scales stay float32).  The numbers differ from the
-    JAX package's for the same seed; :func:`convert.from_jax_params`
-    carries those over instead."""
+    """Random parameters by the reference's rule: the fixed values of
+    :func:`_constant_init` (norm scales 0, used as 1 + scale; the
+    recurrences' biases, ``a_log`` and ``d_skip``), embeddings
+    N(0, 0.02²), every other leaf N(0, 1/fan_in) with fan_in the product
+    of all but the last dimension of the *stacked* leaf, period axis
+    included.  Drawn in float32 from a ``torch.Generator`` seeded with
+    ``seed`` on ``device``, one layer at a time, and stored in ``dtype``
+    (the compute type by default; the leaves of :func:`keeps_float32`
+    stay float32).  The numbers differ from the JAX package's for the
+    same seed; :func:`convert.from_jax_params` carries those over
+    instead."""
     dtype = dtype or L.compute_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = empty_params(cfg)
@@ -160,15 +200,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
         shape = lf["shape"]
         dt = torch.float32 if keeps_float32(path) else dtype
         stacked = path[0] == "blocks"
-        if path[-1] == "scale" and "norm" in "/".join(path):
-            scale = 0.0
-        else:
-            fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
-            scale = (0.02 if "embed" in path
-                     else 1.0 / math.sqrt(max(fan_in, 1)))
+        one = shape[1:] if stacked else shape
+        const = _constant_init(path, one)
+        fan_in = shape[0] if len(shape) == 1 else math.prod(shape[:-1])
+        scale = 0.02 if "embed" in path else 1.0 / math.sqrt(max(fan_in, 1))
         for i in range(shape[0] if stacked else 1):
-            one = shape[1:] if stacked else shape
-            w = (torch.zeros(one, dtype=dt, device=device) if scale == 0.0
+            w = (const.to(device=device, dtype=dt, copy=True)
+                 if const is not None
                  else (torch.randn(one, generator=gen, device=device)
                        * scale).to(dt))
             place(params, path, w, n_pos, i)
@@ -212,21 +250,57 @@ def abstract_params(cfg: ModelConfig, dtype=torch.float32):
 # Cache
 # ---------------------------------------------------------------------------
 
+# the cache tensors of each mixer's state, in the order its block takes
+# and returns them
+STATE_NAMES = {"attn": ("kv_k", "kv_v"), "mamba": ("mamba_h", "mamba_conv"),
+               "mlstm": ("mlstm_c", "mlstm_n", "mlstm_m"),
+               "slstm": ("slstm_c", "slstm_n", "slstm_h", "slstm_m")}
+_CACHE_FILL = {"mlstm_m": -1e30, "slstm_m": -1e30}   # the stabilisers' start
+
+
 def cache_spec(cfg: ModelConfig, batch: int, max_seq: int):
-    """Shapes and types of the incremental-decode cache: one K and one V
-    tensor (attention layers, B, Hkv, max_seq, Dh) and the offset."""
-    _require_ported(cfg)
+    """Shapes and types of the incremental-decode cache: the offset and,
+    for each mixer the model has, its state tensors (:data:`STATE_NAMES`),
+    each with a leading axis that is the index among the model's layers
+    of that mixer (:func:`layer_kinds`): K and V (attention layers, B,
+    Hkv, max_seq, Dh) in the compute type; ``mamba_h`` (Mamba layers, B,
+    d_inner, d_state) float32 and ``mamba_conv`` (…, B, d_conv − 1,
+    d_inner) in the compute type; ``mlstm_{c,n,m}`` and
+    ``slstm_{c,n,h,m}`` float32.
+
+    The reference stacks each state as (periods, n, …) with n the layers
+    of that mixer in a period, and K and V as (periods, n, B, max_seq,
+    Hkv, Dh): the port's row p·n + j is the reference's [p, j], so a
+    state converts by a reshape of its first two axes, K and V with
+    their sequence and head axes swapped too."""
     dt = L.compute_dtype(cfg)
-    kv = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq,
-          cfg.resolved_head_dim)
-    return {"offset": ((), torch.int32), "kv_k": (kv, dt), "kv_v": (kv, dt)}
+    n = {}
+    for mixer, _, _ in layer_kinds(cfg):
+        n[mixer] = n.get(mixer, 0) + 1
+    spec: dict = {"offset": ((), torch.int32)}
+    if "attn" in n:
+        kv = (n["attn"], batch, cfg.num_kv_heads, max_seq,
+              cfg.resolved_head_dim)
+        spec["kv_k"] = (kv, dt)
+        spec["kv_v"] = (kv, dt)
+    if "mamba" in n:
+        hs, cs = MB.mamba_state_spec(cfg, batch)
+        spec["mamba_h"] = ((n["mamba"], *hs), torch.float32)
+        spec["mamba_conv"] = ((n["mamba"], *cs), dt)
+    for mixer, shapes in (("mlstm", X.mlstm_state_spec),
+                          ("slstm", X.slstm_state_spec)):
+        if mixer in n:
+            for name, shape in zip(STATE_NAMES[mixer], shapes(cfg, batch)):
+                spec[name] = ((n[mixer], *shape), torch.float32)
+    return spec
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     out = {"offset": 0}
     for k, (shape, dt) in cache_spec(cfg, batch, max_seq).items():
         if k != "offset":
-            out[k] = torch.zeros(shape, dtype=dt, device=device)
+            out[k] = torch.full(shape, _CACHE_FILL.get(k, 0.0), dtype=dt,
+                                device=device)
     return out
 
 
@@ -260,14 +334,27 @@ def _remat_context(remat):
     return functools.partial(create_selective_checkpoint_contexts, ops)
 
 
-def _block(lp, x, cfg, positions, kv, offset, placement):
-    """One block: (x, expert counts, aux loss)."""
+_RECURRENT = {"mamba": MB.mamba_block, "mlstm": X.mlstm_block,
+              "slstm": X.slstm_block}
+
+
+def _block(lp, x, cfg, mixer, ffn, positions, state, offset, placement):
+    """One block: (x, expert counts, aux loss).  ``state`` is the
+    mixer's cache views (:data:`STATE_NAMES`) or None; the block writes
+    its new state into them in place."""
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    o, _ = L.attention(lp["attn"], h, cfg, positions=positions,
-                       kv_cache=kv, cache_offset=offset)
+    if mixer == "attn":
+        o, _ = L.attention(lp["attn"], h, cfg, positions=positions,
+                           kv_cache=state, cache_offset=offset)
+    else:
+        o, new = _RECURRENT[mixer](lp[mixer], h, cfg, state=state)
+        for dst, src in zip(state or (), new):
+            dst.copy_(src)
     x = x + o
+    if ffn is None:
+        return x, None, None
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-    if cfg.moe is None:
+    if ffn == "mlp":
         return x + L.mlp(lp["ffn"], h2, cfg), None, None
     o2, moe_aux = MOE.moe_ffn(lp["ffn"], h2, cfg, placement=placement)
     return x + o2, moe_aux["expert_counts"], moe_aux["aux_loss"]
@@ -275,12 +362,12 @@ def _block(lp, x, cfg, positions, kv, offset, placement):
 
 def _layers(params, x, cfg, *, positions, cache=None, offset=0,
             placement=None, remat=None):
-    """Every block in order; with a cache, each attention layer writes
-    its keys and values into its slice of it.  ``remat`` (a name of
+    """Every block in order; with a cache, each layer reads and writes
+    its state in its kind's cache tensors (an attention layer its keys
+    and values, a recurrent layer its state).  ``remat`` (a name of
     :data:`REMAT_POLICIES`; None is "none") checkpoints each block:
     the placement that bounds per-layer residual memory, as the
     reference's scan body.  Returns (x, aux)."""
-    _require_ported(cfg)
     if remat not in (None, *REMAT_POLICIES):
         raise ValueError(f"remat={remat!r}: one of {REMAT_POLICIES}")
     n_exp = cfg.moe.num_experts if cfg.moe else 1
@@ -292,9 +379,11 @@ def _layers(params, x, cfg, *, positions, cache=None, offset=0,
     elif remat in _SAVED_PRODUCTS:
         block = functools.partial(checkpoint, _block, use_reentrant=False,
                                   context_fn=_remat_context(remat))
-    for i, lp in enumerate(params["layers"]):
-        kv = None if cache is None else (cache["kv_k"][i], cache["kv_v"][i])
-        x, c, a = block(lp, x, cfg, positions, kv, offset, placement)
+    for lp, (mixer, ffn, j) in zip(params["layers"], layer_kinds(cfg)):
+        state = (None if cache is None
+                 else tuple(cache[name][j] for name in STATE_NAMES[mixer]))
+        x, c, a = block(lp, x, cfg, mixer, ffn, positions, state, offset,
+                        placement)
         if c is not None:
             counts = counts + c
             aux_loss = aux_loss + a

@@ -3,7 +3,7 @@ generation loop — the JAX package's ``serve/engine.py`` on PyTorch.
 
 The builders take no mesh: the port runs on one card, and the
 reference's mesh-only ``cache_shardings`` waits for
-``distributed/sharding.py`` (ROADMAP Queue 1 item 9).  Steps run eagerly
+``distributed/sharding.py`` (ROADMAP Queue 1 item 9e).  Steps run eagerly
 on the device of the parameters.
 """
 from __future__ import annotations

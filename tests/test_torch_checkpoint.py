@@ -4,14 +4,25 @@ port's ``checkpoint.save``): a mid-run snapshot resumes bit-exactly on
 the NumPy plane and the port's CPU plane, fused windows or not (the twin
 of ``tests/test_faults.py``'s pins), a snapshot's keys and arrays are
 the ones the JAX package writes, and only SWARM routers are
-checkpointable."""
+checkpointable.  Model checkpoints of the recurrent families (jamba's
+Mamba, attention, MLP and MoE leaves; xlstm's sLSTM and mLSTM leaves)
+cross the packages bit for bit in both directions."""
 import dataclasses
 import tempfile
 
+import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.checkpoint as RCK
+import repro.models.model as RM
+from repro import configs as RC
+from repro_torch import configs as PC
+from repro_torch import tree as T
+from repro_torch.checkpoint import restore, save
+from repro_torch.models import (abstract_params, from_jax_layout,
+                                init_params, to_jax_layout)
 import repro.streaming.engine as RE
 import repro.streaming.experiments as RX
 from repro_torch.checkpoint import restore_stream, save_stream
@@ -122,3 +133,56 @@ def test_stream_snapshot_crosses_packages():
     x, y = cont.metrics.asarrays(), fresh.metrics.asarrays()
     for k in x:
         assert np.array_equal(x[k][20:], y[k]), k
+
+
+def _model_configs(arch):
+    return (dataclasses.replace(RC.get_smoke_config(arch), dtype="float32"),
+            dataclasses.replace(PC.get_smoke_config(arch), dtype="float32"))
+
+
+def _assert_port_tree_is(cfg, params, ref):
+    """The port's ``params`` in the reference's layout equal ``ref``
+    (a tree of arrays) leaf for leaf, bit for bit, types included."""
+    ours = jax.tree.map(lambda t: t.numpy(), to_jax_layout(cfg, params))
+    flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert len(flat) == len(T.leaves(ours))
+    for path, want in flat:
+        got = ours
+        for key in path:
+            got = got[key.key]
+        assert got.dtype == np.asarray(want).dtype, path
+        np.testing.assert_array_equal(got, np.asarray(want),
+                                      err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_1_3b"])
+def test_a_recurrent_model_checkpoint_crosses_the_packages(arch):
+    ref_cfg, cfg = _model_configs(arch)
+    rp = RM.init_params(ref_cfg, jax.random.PRNGKey(4))
+    with tempfile.TemporaryDirectory() as d:     # JAX → port
+        RCK.save(d, 3, params=rp, config_name=ref_cfg.name)
+        pp, _, man = restore(d, 3, abstract_params=abstract_params(cfg),
+                             cfg=cfg, device="cpu")
+    assert man["config"] == ref_cfg.name
+    _assert_port_tree_is(cfg, pp, rp)
+    params = init_params(cfg, 5, device="cpu", dtype=torch.float32)
+    with tempfile.TemporaryDirectory() as d:     # port → JAX
+        save(d, 7, params=params, config_name=cfg.name, cfg=cfg)
+        back, _, _ = RCK.restore(d, 7,
+                                 abstract_params=RM.abstract_params(ref_cfg))
+    _assert_port_tree_is(cfg, params, back)
+
+
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_1_3b"])
+def test_recurrent_layouts_round_trip(arch):
+    """The port's tree → the reference's layout → back is the identity
+    on every leaf (the Mamba, mLSTM and sLSTM leaves included), two
+    periods deep; the meta template has the same shapes and types."""
+    _, cfg = _model_configs(arch)
+    cfg = dataclasses.replace(cfg, num_layers=2 * cfg.num_layers)
+    params = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+    back = from_jax_layout(cfg, to_jax_layout(cfg, params))
+    assert all(torch.equal(a, b) for a, b in zip(T.leaves(params),
+                                                 T.leaves(back)))
+    assert [(t.shape, t.dtype) for t in T.leaves(abstract_params(cfg))] == \
+        [(t.shape, t.dtype) for t in T.leaves(params)]

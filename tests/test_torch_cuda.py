@@ -4,8 +4,9 @@ with TF32 enabled (ROADMAP F2), the exact-match API and the main path
 on ``TorchPlane("cuda")`` against the port's own NumPy reference plane;
 kernels K5 and K6 against their plain versions (counts exact, attention
 at the JAX package's tolerances) and the LM serving path through them
-(smoke models against the CPU, qwen2-moe-a2.7b at full width with two
-layers against its plain path); training through them: K6's backward
+(smoke models against the CPU, jamba's and xlstm's recurrent mixers
+included, qwen2-moe-a2.7b at full width with two layers against its
+plain path); training through them: K6's backward
 against the reference's attention twin, every attention weight's
 gradient against the CPU's (F6), a train step against the CPU's, and a
 stream checkpoint resumed on the card.  Every test here needs the card and
@@ -719,17 +720,22 @@ def _to(params, device):
 # starcoder2's smoke config has head dim 12: K6 pads it to 16
 @pytest.mark.parametrize("arch", ["internlm2_1_8b", "h2o_danube_1_8b",
                                   "gemma_7b", "qwen2_moe_a2_7b",
-                                  "deepseek_moe_16b", "starcoder2_7b"])
+                                  "deepseek_moe_16b", "starcoder2_7b",
+                                  "jamba_v0_1_52b", "xlstm_1_3b"])
 def test_smoke_model_on_the_card_matches_the_cpu_in_float32(cuda_device,
                                                               arch):
     """Prefill and two decode steps through K5 and K6 on the card give
     the CPU's logits (the plain versions) on the same weights, within
-    the float32 parity tolerance of tests/test_torch_models.py."""
+    the float32 parity tolerance of tests/test_torch_models.py: one K6
+    call per attention layer and one K5 launch per MoE layer and call
+    (jamba: one and four; xlstm: none), and every cache tensor within
+    1e-4 of the CPU's."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import moe_histogram as MH
     from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.model import layer_kinds
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(configs.get_smoke_config(arch),
                               dtype="float32")
@@ -738,7 +744,7 @@ def test_smoke_model_on_the_card_matches_the_cpu_in_float32(cuda_device,
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 20)).astype(np.int32))
     before = (_calls(FA), MH.ops.launches)
-    outs = []
+    outs, caches = [], []
     for params, dev in ((cpu, "cpu"), (card, cuda_device)):
         logits, cache, _ = prefill(params, cfg, token_ids=toks[:, :18].to(dev),
                                    max_seq=20)
@@ -748,12 +754,19 @@ def test_smoke_model_on_the_card_matches_the_cpu_in_float32(cuda_device,
                                            toks[:, t:t + 1].to(dev))
             got.append(logits)
         outs.append(got)
+        caches.append(cache)
     torch.cuda.synchronize()
-    n_moe = cfg.num_layers if cfg.moe else 0
+    kinds = layer_kinds(cfg)
+    n_attn = sum(mixer == "attn" for mixer, _, _ in kinds)
+    n_moe = sum(ffn == "moe" for _, ffn, _ in kinds)
     assert (_calls(FA), MH.ops.launches) == (
-        before[0] + 3 * cfg.num_layers, before[1] + 3 * n_moe)
+        before[0] + 3 * n_attn, before[1] + 3 * n_moe)
     for a, b in zip(*outs):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-4)
+    for name, want in caches[0].items():
+        if name != "offset":
+            torch.testing.assert_close(caches[1][name].cpu(), want, rtol=0,
+                                       atol=1e-4)
 
 
 def test_two_layer_full_width_prefill_and_decode_on_the_card(cuda_device):

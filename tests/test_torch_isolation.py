@@ -63,7 +63,8 @@ REWRITTEN = [
     "kernels/flash_attention/__init__.py", "kernels/flash_attention/ops.py",
     "kernels/flash_attention/ref.py",
     "models/__init__.py", "models/config.py", "models/layers.py",
-    "models/model.py", "models/moe.py",
+    "models/model.py", "models/moe.py", "models/mamba.py",
+    "models/xlstm.py",
     "serve/__init__.py", "serve/engine.py",
     "distributed/__init__.py",
     "launch/serve.py",

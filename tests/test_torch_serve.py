@@ -1,7 +1,8 @@
 """The PyTorch port's serving path against the JAX package at smoke
 sizes: ``greedy_generate`` gives the reference's tokens in float32 on
 the same weights; ``launch.serve`` runs on ``--device cpu`` (its
-function and its command line) and routes and rebalances exactly as
+function for the attention, MoE, hybrid and ssm families, its
+config-taking ``serve_config`` and its command line) and routes and rebalances exactly as
 the reference's flow does; ``SwarmRequestRouter`` and ``ExpertBalancer``
 (copies of the reference's modules) fed the same inputs give the same
 outputs as the reference's, the balancer on expert counts from the
@@ -25,8 +26,9 @@ from repro.serve import SwarmRequestRouter as JRouter  # noqa: E402
 from repro.serve import greedy_generate as j_generate  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import ExpertBalancer  # noqa: E402
-from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.serve import serve, serve_config  # noqa: E402
 from repro_torch.models import from_jax_params, prefill  # noqa: E402
+from repro_torch.models.model import layer_kinds  # noqa: E402
 from repro_torch.serve import (SwarmRequestRouter, greedy_generate,  # noqa: E402
                                make_prefill_step, make_serve_step)
 
@@ -85,7 +87,8 @@ def _reference_flow(sessions, replicas, steps):
             float(loads.std() / (loads.mean() + 1e-9)))
 
 
-@pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_moe_a2_7b"])
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "qwen2_moe_a2_7b",
+                                  "jamba_v0_1_52b", "xlstm_1_3b"])
 def test_serve_runs_on_the_cpu_and_routes_as_the_reference(arch):
     out = serve(arch, smoke=True, sessions=24, prompt_len=8, steps=5,
                 replicas=4, device="cpu", log=lambda *_: None)
@@ -100,12 +103,29 @@ def test_serve_runs_on_the_cpu_and_routes_as_the_reference(arch):
     assert out["d_model"] == cfg.d_model and out["layers"] == cfg.num_layers
     if cfg.moe is not None:
         # one histogram per call: prefill's batch·prompt·top_k, then
-        # batch·top_k per decode step, summed over the layers
+        # batch·top_k per decode step, summed over the MoE layers
         per_call = out["expert_counts"].sum(1)
-        k, layers = cfg.moe.top_k, cfg.num_layers
+        k = cfg.moe.top_k
+        layers = sum(ffn == "moe" for _, ffn, _ in layer_kinds(cfg))
         assert per_call[0] == batch * 8 * k * layers
         assert (per_call[1:] == batch * k * layers).all()
         assert out["ep_shards"] == 4
+
+
+def test_serve_config_runs_a_config_the_caller_cut():
+    """``serve_config`` takes a ``ModelConfig``: jamba's smoke config
+    cut to one period gives what ``serve`` gives on the same config."""
+    cfg = configs.get_smoke_config("jamba_v0_1_52b")
+    assert cfg.num_layers == 8          # one period already: cut nothing
+    kw = dict(sessions=12, prompt_len=6, steps=3, device="cpu",
+              log=lambda *_: None)
+    a = serve("jamba_v0_1_52b", smoke=True, **kw)
+    b = serve_config(cfg, **kw)
+    np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    np.testing.assert_array_equal(a["expert_counts"], b["expert_counts"])
+    wide = dataclasses.replace(cfg, num_layers=16)
+    c = serve_config(wide, **kw)
+    assert c["layers"] == 16 and c["logits_finite"]
 
 
 def test_serve_command_line_runs_on_the_cpu():

@@ -6,7 +6,7 @@ the loss (1e-4; MoE expert counts exact) and its gradient leaf by leaf
 step, the attention gradient of the reference's XLA attention and of
 K6's autograd path, the training loop (loss falls, microbatching,
 resume), checkpoints crossing packages in both directions, the launcher
-and ``launch.analytic``.  The JAX side runs as the JAX package's own
+and ``launch.analytic`` (all ten configs).  The JAX side runs as the JAX package's own
 tests run it."""
 import dataclasses
 import os
@@ -104,7 +104,11 @@ LOSS_CASES = [("internlm2_1_8b", 64, None), ("qwen2_moe_a2_7b", 64, None),
               # and three CE chunks
               ("internlm2_1_8b", 1536, None),
               # an MoE capacity that drops slots, both directions
-              ("qwen2_moe_a2_7b", 64, 0.5)]
+              ("qwen2_moe_a2_7b", 64, 0.5),
+              # the recurrent families at two 256-step segments: each
+              # segment of segmented_scan checkpointed inside the
+              # block's own checkpoint
+              ("jamba_v0_1_52b", 512, None), ("xlstm_1_3b", 512, None)]
 
 
 @pytest.mark.parametrize("arch,seq,capacity", LOSS_CASES)
@@ -519,25 +523,13 @@ def test_train_launcher_refuses_a_mesh_and_needs_a_card():
 # launch.analytic
 # ---------------------------------------------------------------------------
 
-PORTED = [a for a in RC.ARCH_IDS
-          if RC.get_config(a).family not in ("hybrid", "ssm")]
-
-
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_analytic_cost_equals_the_jax_package(arch):
     for kind in ("train", "prefill", "decode"):
         for remat in ("nothing", "dots_no_batch"):
             assert analytic_cost(PC.get_config(arch), kind, 4, 2048,
                                  remat=remat) == ref_analytic_cost(
                 RC.get_config(arch), kind, 4, 2048, remat=remat)
-
-
-@pytest.mark.parametrize("arch", sorted(set(RC.ARCH_IDS) - set(PORTED)))
-def test_analytic_cost_of_an_unported_family_raises(arch):
-    """jamba (hybrid) and xlstm (ssm): the parameter count needs the
-    Mamba/xLSTM specs, which come with ROADMAP Queue 1 items 9b/9c."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        analytic_cost(PC.get_config(arch), "train", 4, 2048)
 
 
 def test_trainer_balances_experts_as_the_reference_launcher_does():
