@@ -16,6 +16,14 @@ paths at realistic sizes:
   times: as a user runs it (the end-to-end rate), with the engine's own
   tracer on (time per layer) and under ``torch.profiler`` (the card's
   busy share);
+- the sharded data plane (phase ``sharded``): that deployment on
+  ``ShardedTorchPlane`` at 1, 2 and 4 shards colocated on the card, each
+  run against phase ``main``'s ``TorchPlane`` run (counts equal, the
+  rest within rtol 1e-3), its resharded bytes equal to the billed
+  migration bytes and K1 once a round close; then
+  ``tests/test_sharded.py``'s rebalance-and-failure timeline (with
+  backpressure engaged, and idle) and its keyword timeline on four
+  shards, the card against the port on the CPU;
 - the exact-match API (phase ``match``): one hotspot tick of 131 072
   tuples against those 100 000 queries through
   ``TorchPlane.match_counts`` (K2) and, against the queries' centres as
@@ -73,7 +81,8 @@ merge kernels.  Phase ``k4`` holds K4 at k = 8, 17 and 32; the
 (the launches of its prefill kernels) and, as ``flash_attention_decode``,
 at its last decode input (the launches of its decode and merge
 kernels); each wrapper counts every kernel it launches, and K4's and
-K6's rows split their count by kernel, and K5's and K6's rows by path
+K6's rows split their count by kernel, K1's row by path (``main`` and
+``sharded``, the three shard counts summed), and K5's and K6's by path
 (``serve`` and ``serve_hybrid``).  K2–K4's operation bounds count one
 instruction per lane and clock (SINGLE_ISSUE_OPS_PER_S).
 
@@ -110,6 +119,13 @@ GRID, MACHINES = 512, 64       # largest cell of benchmarks/control_plane.py
 LAMBDA = 131072                # largest batch of benchmarks/engine_throughput.py
 QUERIES = 100_000              # README pub/sub quickstart scale
 TICKS, ROUND_EVERY, WINDOW = 96, 8, 16
+# phase sharded: the main path's deployment on ShardedTorchPlane at these
+# shard counts, colocated on the card; then tests/test_sharded.py's
+# timelines (SHARD_G, SHARD_M) on four shards, card against the CPU port
+SHARD_COUNTS = (1, 2, 4)
+SHARD_G, SHARD_M = 16, 8
+SHARD_EXACT = ("injected", "q_total", "transfers", "migration_bytes",
+               "moved_tuples", "wire_bytes")
 KNN_K = 8                      # QuerySpec / WorkloadSpec.k
 # phase k4's list lengths: the path's k, and past the register cap of
 # 16 that the kernel had before (the lists of 24 and 32)
@@ -936,7 +952,22 @@ def phase_main(torch, T, np, SU) -> dict:
            "live_partitions": int(len(router.index.parts.live_ids())),
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     emit(out)
-    return out
+    return {**out, "metrics": mt}
+
+
+def _spans(tracer) -> tuple[dict, int]:
+    """Host seconds and calls per span name of a traced run, and the
+    fused windows it declined."""
+    spans, declined = {}, 0
+    for ev in tracer.events:
+        if ev.kind != "span":
+            continue
+        s = spans.setdefault(ev.name, {"s": 0.0, "calls": 0})
+        s["s"] += ev.dur / 1e9
+        s["calls"] += 1
+        if ev.name == "fused_window" and not ev.args.get("ok", True):
+            declined += 1
+    return spans, declined
 
 
 def phase_breakdown(torch, T, np, SU, main) -> dict:
@@ -962,21 +993,141 @@ def phase_breakdown(torch, T, np, SU, main) -> dict:
         wall = _run(torch, np, eng, main)
     finally:
         SU.close_round_inputs = real
-    spans, declined = {}, 0
-    for ev in eng.tracer.events:
-        if ev.kind != "span":
-            continue
-        s = spans.setdefault(ev.name, {"s": 0.0, "calls": 0})
-        s["s"] += ev.dur / 1e9
-        s["calls"] += 1
-        if ev.name == "fused_window" and not ev.args.get("ok", True):
-            declined += 1
+    spans, declined = _spans(eng.tracer)
     check(spans.get("stats_close", {}).get("calls") == main["rounds"]
           and "fused_window_dispatch" in spans,
           "traced run: round-close or window spans missing")
     emit({"phase": "breakdown", "wall_s": wall, "declined_windows": declined,
           "spans": spans, "k1_last_shape": list(last["bank6"].shape)})
     return last
+
+
+def _parity(np, ref: dict, got: dict, rtol: float, what: str) -> dict:
+    """Check ``got`` against ``ref`` (the SHARD_EXACT metrics equal, the
+    others within ``rtol``) and return each metric's largest relative
+    error."""
+    worst = {}
+    for name in ref:
+        a = np.asarray(ref[name], np.float64)
+        b = np.asarray(got[name], np.float64)
+        if name in SHARD_EXACT:
+            check(np.array_equal(a, b), f"{what}: {name} differs")
+            continue
+        check(np.allclose(b, a, rtol=rtol, atol=1e-6),
+              f"{what}: {name} beyond rtol {rtol}")
+        worst[name] = float(np.max(np.abs(a - b)
+                                   / np.maximum(np.abs(a), 1e-6),
+                                   initial=0.0))
+    return worst
+
+
+def _shard_timeline(T, plane, name: str) -> tuple[dict, int]:
+    """One of tests/test_sharded.py's timelines through ``plane``: the
+    rebalance-and-failure one (cap_units 3e3: backpressure declines every
+    fused window, each replayed per tick), the same with backpressure
+    idle (its windows run on the plane) and the keyword one.  Returns
+    the metrics and the bytes the plane resharded."""
+    cap = {"rebalance": 3e3}.get(name, 1e9)
+    cfg = T.EngineConfig(num_machines=SHARD_M, cap_units=cap,
+                         lambda_max=2000, mem_queries=10**8, round_every=8,
+                         fused_window=8)
+    if name == "keyword":
+        wl = T.WorkloadSpec(query_model="spatial_keyword")
+        scen = T.ScenarioSpec("hot_hashtags", ticks=24, preload_queries=400,
+                              query_burst=100, hot_terms=2, term_peak=0.4)
+    else:
+        wl = None
+        scen = T.ScenarioSpec(
+            "normal_normal", ticks=48, preload_queries=800, query_burst=200,
+            peak=0.6, membership=(T.MembershipEvent(20, "fail", 3),
+                                  T.MembershipEvent(34, "join", 3)))
+    router = T.RouterSpec("swarm", grid_size=SHARD_G, beta=4).build(
+        num_machines=SHARD_M, workload=wl, data_plane=plane, seed=0)
+    eng = T.StreamingEngine(router, scen.build(seed=0, workload=wl), cfg)
+    router.ingest(eng.stream.preload(scen.preload_queries))
+    before = plane.reshard_bytes_total
+    return eng.run(scen.ticks).asarrays(), plane.reshard_bytes_total - before
+
+
+def phase_sharded(torch, T, np, SU, main, smi: str) -> dict:
+    """The main path's deployment (``_main_engine``) on
+    ``ShardedTorchPlane`` at each of SHARD_COUNTS shards, colocated on
+    the card (16 machines a shard at four): each run against phase
+    ``main``'s ``TorchPlane`` run of this call (SHARD_EXACT metrics
+    equal, the rest within rtol 1e-3), its bytes resharded equal to the
+    billed migration bytes (> 0), one K1 launch a round close.  Then
+    the widest run once more with the tracer on (seconds per span), and
+    the three timelines of ``_shard_timeline`` on four shards, the card
+    against the CPU port (rtol 1e-3, keyword 1e-4).  Returns K1's
+    launches over the three untraced main-size runs."""
+    ref = main["metrics"]
+    runs, k1_total = {}, 0
+    for d in SHARD_COUNTS:
+        plane = T.ShardedTorchPlane(d, "cuda", colocate=True)
+        eng, preload_s = _main_engine(T, plane)
+        torch.cuda.reset_peak_memory_stats()
+        SU.ops.launches = 0                   # counts from here …
+        wall = _run(torch, np, eng)
+        k1 = SU.ops.launches                  # … to here
+        k1_total += k1
+        mt = eng.metrics.asarrays()
+        rounds = eng.router.swarm.round_no
+        check(k1 == rounds, f"sharded D={d}: K1 launched {k1}× for "
+              f"{rounds} round closes")
+        worst = _parity(np, ref, mt, 1e-3, f"sharded D={d} vs TorchPlane")
+        billed = int(np.sum(mt["migration_bytes"]))
+        check(billed > 0 and plane.reshard_bytes_total == billed,
+              f"sharded D={d}: resharded {plane.reshard_bytes_total} bytes, "
+              f"billed {billed}")
+        injected = int(np.sum(mt["injected"]))
+        runs[d] = {
+            "injected_per_s": injected / wall, "wall_s": wall,
+            "preload_s": preload_s, "rounds": rounds, "k1_launches": k1,
+            "windows": plane.windows,
+            "exchange_bytes_per_window":
+                plane.exchange_bytes_total / max(plane.windows, 1),
+            "reshard_bytes": plane.reshard_bytes_total,
+            "migration_bytes": billed,
+            "shard_tuples": plane.shard_tuples.tolist(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "colocated": plane.colocated,
+            "devices": [str(x) for x in plane.shards],
+            "max_rel_err": worst}
+        del eng, plane
+    # the widest run again with the engine's tracer on: the span
+    # sharded_window_dispatch is the window body (binning, exchange,
+    # slot counts, scan) beside phase breakdown's fused_window_dispatch
+    eng, _ = _main_engine(T, T.ShardedTorchPlane(SHARD_COUNTS[-1], "cuda",
+                                                 colocate=True),
+                          telemetry=T.TelemetryConfig(tick_spans=False))
+    traced_wall = _run(torch, np, eng, main)
+    spans, declined = _spans(eng.tracer)
+    check("sharded_window_dispatch" in spans and declined == 0,
+          "sharded traced run: window spans missing or windows declined")
+    del eng
+    timelines = {}
+    for name in ("rebalance", "rebalance-idle", "keyword"):
+        card = T.ShardedTorchPlane(4, "cuda", colocate=True)
+        got, moved = _shard_timeline(T, card, name)
+        want, want_moved = _shard_timeline(
+            T, T.ShardedTorchPlane(4, "cpu"), name)
+        worst = _parity(np, want, got, 1e-4 if name == "keyword" else 1e-3,
+                        f"sharded timeline {name}: card vs CPU")
+        billed = int(np.sum(got["migration_bytes"]))
+        check(moved == want_moved == billed,
+              f"sharded timeline {name}: resharded {moved} bytes "
+              f"(CPU {want_moved}), billed {billed}")
+        timelines[name] = {"transfers": int(np.sum(got["transfers"])),
+                           "reshard_bytes": moved, "windows": card.windows,
+                           "max_rel_err": worst}
+    emit({"phase": "sharded", "card": smi,
+          "torch_plane_injected_per_s": main["injected_per_s"],
+          "grid": GRID, "machines": MACHINES, "lambda_max": LAMBDA,
+          "queries": QUERIES, "ticks": TICKS, "shards": runs,
+          "traced": {"shards": SHARD_COUNTS[-1], "wall_s": traced_wall,
+                     "spans": spans},
+          "timelines": timelines})
+    return {"k1_launches": k1_total}
 
 
 def phase_profile(torch, T, np, main) -> None:
@@ -2660,6 +2811,7 @@ def main() -> int:
     phase_tf32(torch, T, np, plane)
     main_out = phase_main(torch, T, np, SU)
     last = phase_breakdown(torch, T, np, SU, main_out)
+    sharded = phase_sharded(torch, T, np, SU, main_out, smi)
     phase_profile(torch, T, np, main_out)
     match = phase_match(torch, T, np, kern, plane, device)
     pubsub = phase_pubsub(torch, T, np, kern, plane, "torch", device)
@@ -2740,8 +2892,10 @@ def main() -> int:
                 "library_ms": library_ms}
 
     emit({"kernels": [
-        row("stats_update", main_out["k1_launches"], worst, times,
-            times["library_ms"]),
+        row("stats_update", main_out["k1_launches"] + sharded["k1_launches"],
+            worst, times, times["library_ms"],
+            by_path={"main": main_out["k1_launches"],
+                     "sharded": sharded["k1_launches"]}),
         row("spatial_match", match["launches"]["spatial_match"],
             max(worst_k2, k2["max_abs_err"]), k2),
         row("keyword_match", pubsub["launches"]["keyword_match"],

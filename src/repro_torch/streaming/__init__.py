@@ -22,6 +22,7 @@ from .fused import (DeviceState, EngineCarry, FusedHostState, FusedOutputs,
                     FusedParams)
 from .planes import DataPlane, NumpyPlane, TorchPlane, available_planes, \
     get_plane
+from .sharded import ShardedTorchPlane, sharded_plane
 from .sources import (Hotspot, HotTerm, MembershipEvent, ReplaySource,
                       ScenarioSource, TwitterLikeSource, scenario)
 
@@ -31,7 +32,8 @@ __all__ = [
     "MachineJoin", "MachineSlow", "MembershipChange", "EventBatch",
     "RoutingDecision", "RoundOutcome", "MemoryUsage", "Router", "EventStream",
     # data planes
-    "DataPlane", "NumpyPlane", "TorchPlane", "get_plane", "available_planes",
+    "DataPlane", "NumpyPlane", "TorchPlane", "ShardedTorchPlane",
+    "sharded_plane", "get_plane", "available_planes",
     # device-resident fused ingest
     "DeviceState", "FusedHostState", "FusedParams", "EngineCarry",
     "FusedOutputs",

@@ -270,8 +270,16 @@ def run(exp: Experiment) -> ExperimentResult:
     Perfetto traces are exported there under the experiment label."""
     source = exp.scenario.build(seed=exp.seed, workload=exp.workload)
     # plane names: "numpy", "torch" (the card), "torch-cpu" (explicit
-    # CPU); "sharded" raises NotImplementedError in planes.get_plane
+    # CPU), "sharded" (the machine axis over the cards) and
+    # "sharded-cpu" (its shards on the host)
     data_plane = exp.data_plane
+    if exp.data_plane in ("sharded", "sharded-cpu") and exp.engine.devices:
+        # pin the shard count: the devices knob resolves to a shared
+        # plane instance (and folds into the label via the engine spec)
+        from .sharded import sharded_plane
+        data_plane = sharded_plane(
+            exp.engine.devices,
+            "cpu" if exp.data_plane == "sharded-cpu" else "cuda")
     link_cost = None
     if exp.engine.links is not None:
         from ..ft import LinkModel

@@ -26,6 +26,10 @@ Two implementations:
   ``keyword_match`` and ``knn_match``.  On ``device="cpu"`` every
   kernel's plain PyTorch version runs instead.
 
+``streaming/sharded.py`` adds ``ShardedTorchPlane`` (names ``"sharded"``
+and ``"sharded-cpu"``): ``TorchPlane`` with the machine axis over D
+device shards and its fused window rebuilt over them.
+
 Besides the stateless per-call API, both planes implement the
 *device-resident* fused-ingest contract of ``streaming.fused``:
 :meth:`DataPlane.make_state` uploads a router snapshot once,
@@ -598,11 +602,15 @@ class TorchPlane(DataPlane):
         return torch.from_numpy(np.ascontiguousarray(arr, dtype)).to(
             self.device)
 
-    def _cost_scalars(self, cp: CostParams) -> tuple:
-        return (self._sc(cp.c0), self._sc(cp.kappa_probe),
-                self._sc(cp.kappa_match), self._sc(cp.q_cache),
-                self._sc(cp.query_area), self._sc(cp.match_factor),
-                self._sc(cp.store_cost), self._sc(cp.delivery_cost))
+    def _cost_scalars(self, cp: CostParams, upload=None) -> tuple:
+        """The cost scalars as 0-dim float32 tensors from ``upload`` (a
+        device's :class:`_UploadCache`; this plane's device by
+        default)."""
+        get = (upload or self._upload).get
+        return tuple(get(np.float32(v)) for v in (
+            cp.c0, cp.kappa_probe, cp.kappa_match, cp.q_cache,
+            cp.query_area, cp.match_factor, cp.store_cost,
+            cp.delivery_cost))
 
     def _fence(self) -> None:
         """Wait for the device (enabled-tracer spans only)."""
@@ -864,14 +872,15 @@ class TorchPlane(DataPlane):
             out = out + (self._host(dels, np.float64),)
         return state, out
 
-    def _counts(self, idx: torch.Tensor, n: int) -> torch.Tensor:
-        """Exact histogram of ``idx`` over ``n`` bins as float32: a
-        scatter-add of ones (integer partial sums stay exact below 2²⁴
-        in any order, and no host sync is needed, unlike
-        ``torch.bincount`` on the card)."""
-        out = torch.zeros(n, dtype=torch.float32, device=self.device)
+    @staticmethod
+    def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+        """Exact histogram of ``idx`` over ``n`` bins as float32, on
+        ``idx``'s device: a scatter-add of ones (integer partial sums
+        stay exact below 2²⁴ in any order, and no host sync is needed,
+        unlike ``torch.bincount`` on the card)."""
+        out = torch.zeros(n, dtype=torch.float32, device=idx.device)
         return out.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float32,
-                                                 device=self.device))
+                                                 device=idx.device))
 
     def run_window(self, state: DeviceState, cp: CostParams,
                    fp: FusedParams, carry: EngineCarry, xy_stack,
@@ -923,24 +932,15 @@ class TorchPlane(DataPlane):
                 # (P, T+1) pivot histogram — keyword filtering factors
                 # through them exactly like routing factors through the
                 # partition counts
-                (c0, kappa_probe, kappa_match, q_cache, query_area, mf,
-                 store_cost, delivery_cost) = sc
                 t1 = state.qres_kw.shape[1]
                 ids = self._batch(kw_stack, np.int64)            # (W, B, K+1)
                 flat = ((tick[:, :, None] * p_used + pids[:, :, None]) * t1
                         + ids)[ids >= 0]
                 cnt_wpb = self._counts(flat, w * p_used * t1).view(
                     w, p_used, t1)
-                base_p = (c0 + probe_term(torch, state.q_machine[own_g],
-                                          kappa_probe, q_cache) + store_cost)
-                cov_p = self._cov(query_area, state.area_frac[:p_used])
-                del_wp = ((cnt_wpb * state.qres_kw[:p_used][None]).sum(-1)
-                          * cov_p[None, :])
-                units_wm = (
-                    (count_wp[:, :, None] * (base_p[:, None] * owner_m)).sum(1)
-                    + (mf * kappa_match + delivery_cost)
-                    * (del_wp[:, :, None] * owner_m).sum(1))
-                dels_w = del_wp.sum(1)
+                units_wm, dels_w = self._kw_window_body(
+                    count_wp, cnt_wpb, slice(p_used), own_g, owner_m,
+                    state.qres_kw, state.q_machine, state.area_frac, sc)
             else:
                 cost_p = self._cost_body(
                     p_used, torch.arange(p_used, device=dev), own_g,
@@ -959,18 +959,45 @@ class TorchPlane(DataPlane):
                         flat_p + row.reshape(-1), p_cap * g1).view(p_cap, g1),
                     cn_cols=state.cn_cols + self._counts(
                         flat_p + col.reshape(-1), p_cap * g1).view(p_cap, g1))
-            # the window's only device→host transfer
-            host = torch.cat([outs.reshape(-1), carry_t, ok.to(f32)[None],
-                              dels_w]).cpu().numpy().astype(np.float64)
+            carry, outs, ok = self._download(outs, carry_t, ok, dels_w,
+                                             keyword)
+        return state, carry, outs, ok
+
+    def _kw_window_body(self, count, cnt_b, pids, owners, owner_m, qres_kw,
+                        q_machine, area_frac, sc):
+        """A keyword window's (W, M) units and (W,) expected deliveries
+        from its (W, n) partition counts and (W, n, T+1) term-bucket
+        counts over the n partitions ``pids`` (an index or a slice;
+        ``owners`` clamped, ``owner_m`` the (n, M) ownership one-hot) —
+        shared by this plane's window and the sharded one's."""
+        (c0, kappa_probe, kappa_match, q_cache, query_area, mf,
+         store_cost, delivery_cost) = sc
+        base = (c0 + probe_term(torch, q_machine[owners], kappa_probe,
+                                q_cache) + store_cost)
+        cov = self._cov(query_area, area_frac[pids])
+        dels = (cnt_b * qres_kw[pids][None]).sum(-1) * cov[None, :]
+        units = ((count[:, :, None] * (base[:, None] * owner_m)).sum(1)
+                 + (mf * kappa_match + delivery_cost)
+                 * (dels[:, :, None] * owner_m).sum(1))
+        return units, dels.sum(1)
+
+    @staticmethod
+    def _download(outs, carry_t, ok, dels_w, keyword: bool):
+        """The window's only device→host transfer: ``_scan``'s stacked
+        rows, carry and ``ok`` flag with the (W,) deliveries, unpacked
+        into ``(EngineCarry, FusedOutputs, ok)``."""
+        w, m = outs.shape[0], outs.shape[1] - 3
+        host = torch.cat([outs.reshape(-1), carry_t,
+                          ok.to(torch.float32)[None],
+                          dels_w]).cpu().numpy().astype(np.float64)
         k = w * (m + 3)
-        outs = host[:k].reshape(w, m + 3)
+        rows = host[:k].reshape(w, m + 3)
         qu, qt, lam = host[k:k + m], host[k + m:k + 2 * m], host[k + 2 * m]
-        ok = bool(host[k + 2 * m + 1])
-        return (state, EngineCarry(qu, qt, float(lam)),
-                FusedOutputs(outs[:, 0], outs[:, 1], outs[:, 3:],
-                             outs[:, 2].astype(np.int64),
+        return (EngineCarry(qu, qt, float(lam)),
+                FusedOutputs(rows[:, 0], rows[:, 1], rows[:, 3:],
+                             rows[:, 2].astype(np.int64),
                              host[k + 2 * m + 2:] if keyword else None),
-                ok)
+                bool(host[k + 2 * m + 1]))
 
     def _scan(self, units_wm, tuples_wm, carry: EngineCarry,
               fp: FusedParams, batch: int):
@@ -1023,13 +1050,21 @@ class TorchPlane(DataPlane):
 # Registry
 # ---------------------------------------------------------------------------
 
+# "sharded" and "sharded-cpu" resolve lazily through
+# ``sharded.sharded_plane``: that module subclasses TorchPlane (an import
+# cycle with this one), and "sharded" looks for cards when it is built
 _PLANES: dict[str, object] = {
     "numpy": NumpyPlane, "torch": TorchPlane,
-    "torch-cpu": functools.partial(TorchPlane, "cpu")}
+    "torch-cpu": functools.partial(TorchPlane, "cpu"),
+    "sharded": None, "sharded-cpu": None}
 
 
 @functools.lru_cache(maxsize=None)
 def _plane_singleton(name: str) -> DataPlane:
+    if _PLANES[name] is None:
+        from .sharded import sharded_plane
+        return sharded_plane(None, "cpu" if name == "sharded-cpu"
+                             else "cuda")
     return _PLANES[name]()
 
 
@@ -1037,15 +1072,14 @@ def get_plane(plane: "DataPlane | str | None") -> DataPlane:
     """Resolve a plane argument: an instance passes through, a name is
     looked up (instances are shared — planes are stateless).  ``None``
     and ``"torch"`` mean the card; ``"torch-cpu"`` is the same plane on
-    the host and ``"numpy"`` the reference plane."""
+    the host and ``"numpy"`` the reference plane.  ``"sharded"`` spreads
+    the machine axis over every visible card and ``"sharded-cpu"`` runs
+    its shards on the host (one by default; ``EngineConfig.devices``
+    sets the count through ``experiments.run``)."""
     if plane is None:
         return _plane_singleton("torch")
     if isinstance(plane, DataPlane):
         return plane
-    if plane == "sharded":
-        raise NotImplementedError(
-            "the sharded data plane is not ported yet: ROADMAP Queue 1 "
-            "item 7")
     if plane not in _PLANES:
         raise ValueError(f"unknown data plane {plane!r}; "
                          f"available: {sorted(_PLANES)}")

@@ -1,7 +1,8 @@
 """The PyTorch port on a CUDA card: kernels K1–K4 against their plain
 versions (exact), one K1 launch per round close, exact window counts
 with TF32 enabled (ROADMAP F2), the exact-match API and the main path
-on ``TorchPlane("cuda")`` against the port's own NumPy reference plane;
+on ``TorchPlane("cuda")`` against the port's own NumPy reference plane,
+and the sharded plane's four shards on the card against the CPU port;
 kernels K5 and K6 against their plain versions (counts exact, attention
 at the JAX package's tolerances) and the LM serving path through them
 (smoke models against the CPU, jamba's and xlstm's recurrent mixers
@@ -158,6 +159,106 @@ def test_declined_window_leaves_the_state_untouched(cuda_device):
     for a, b in zip(state, before):
         if a is not None:
             assert torch.equal(a, b)
+
+
+# tests/test_sharded.py's timelines, built from either package (the
+# port's, or the JAX package's in tests/test_torch_sharded.py, which
+# imports these helpers): low capacity so backpressure engages, rounds
+# inside the fused window cadence and a kill/join pair mid-run (a
+# rebalance transfer, a membership recovery and several window
+# boundaries); "rebalance-idle" the same with backpressure idle; the
+# keyword timeline at the pub/sub grid's cadence with backpressure idle
+SHARD_G, SHARD_M = 16, 8
+EXACT = ("injected", "q_total", "transfers", "migration_bytes",
+         "moved_tuples", "wire_bytes")
+
+
+def _timeline(pkg, name: str, devices: int = 0):
+    if name.startswith("rebalance"):
+        cap = 1e9 if name == "rebalance-idle" else 3e3
+        cfg = pkg.EngineConfig(num_machines=SHARD_M, cap_units=cap,
+                               lambda_max=2000, mem_queries=10**8,
+                               round_every=8, fused_window=8,
+                               devices=devices)
+        scen = pkg.ScenarioSpec(
+            "normal_normal", ticks=48, preload_queries=800, query_burst=200,
+            peak=0.6, membership=(pkg.MembershipEvent(20, "fail", 3),
+                                  pkg.MembershipEvent(34, "join", 3)))
+        return scen, cfg, None
+    cfg = pkg.EngineConfig(num_machines=SHARD_M, cap_units=1e9,
+                           lambda_max=2000, mem_queries=10**8,
+                           round_every=8, fused_window=8, devices=devices)
+    scen = pkg.ScenarioSpec("hot_hashtags", ticks=24, preload_queries=400,
+                            query_burst=100, hot_terms=2, term_peak=0.4)
+    return scen, cfg, pkg.WorkloadSpec(query_model="spatial_keyword")
+
+
+def _drive(pkg, plane, name="rebalance"):
+    """The timeline through ``StreamingEngine`` with a given plane
+    instance (as ``tests/test_sharded.py``'s reshard test drives it)."""
+    scen, cfg, wl = _timeline(pkg, name)
+    src = scen.build(seed=0, workload=wl)
+    router = pkg.RouterSpec("swarm", grid_size=SHARD_G, beta=4).build(
+        num_machines=SHARD_M, workload=wl, data_plane=plane, seed=0)
+    eng = pkg.StreamingEngine(router, src, cfg)
+    preload = eng.stream.preload(scen.preload_queries)
+    if preload is not None:
+        router.ingest(preload)
+    return eng.run(scen.ticks).asarrays()
+
+
+def _banks(x) -> np.ndarray:
+    """(D, S, G+1) banks from either package's state."""
+    if isinstance(x, tuple):
+        return np.stack([t.cpu().numpy() for t in x])
+    return np.asarray(x)
+
+
+def _record(plane, log: list) -> None:
+    """Log the slot layout and both bank stacks after every accepted
+    window of ``plane`` (a fresh instance: the hook is an attribute)."""
+    run_window = plane.run_window
+
+    def recorded(*args, **kw):
+        out = run_window(*args, **kw)
+        if out[3]:
+            st = out[0]
+            log.append((np.asarray(st.slot_pid), _banks(st.cn_rows),
+                        _banks(st.cn_cols)))
+        return out
+
+    plane.run_window = recorded
+
+
+def _assert_parity(ref: dict, got: dict, rtol=1e-3):
+    for name in ref:
+        a = np.asarray(ref[name], np.float64)
+        b = np.asarray(got[name], np.float64)
+        if name in EXACT:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-6,
+                                       err_msg=name)
+
+
+# "rebalance" declines every window (backpressure, replayed per tick);
+# "rebalance-idle" keeps backpressure idle, so its windows carry the
+# slot banks
+@pytest.mark.parametrize("name", ["rebalance", "rebalance-idle"])
+def test_four_shards_on_the_card_match_the_cpu_port(cuda_device, name):
+    card = T.ShardedTorchPlane(4, "cuda", colocate=True)
+    cpu = T.ShardedTorchPlane(4, "cpu")
+    got_log, ref_log = [], []
+    _record(card, got_log)
+    _record(cpu, ref_log)
+    got, ref = _drive(T, card, name), _drive(T, cpu, name)
+    _assert_parity(ref, got)
+    billed = int(sum(got["migration_bytes"]))
+    assert card.reshard_bytes_total == cpu.reshard_bytes_total == billed > 0
+    assert len(got_log) == len(ref_log) == (0 if name == "rebalance" else 9)
+    for g_, r in zip(got_log, ref_log):
+        for a, b in zip(g_, r):
+            np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,7 @@ REWRITTEN = [
     "checkpoint/checkpoint.py",
     "train/__init__.py", "train/optimizer.py", "train/train_step.py",
     "launch/train.py",
+    "launch/mesh.py", "streaming/sharded.py",
 ]
 
 

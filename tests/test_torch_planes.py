@@ -373,7 +373,7 @@ def test_window_counts_exact_above_2048_with_tf32_enabled():
 
 
 # ---------------------------------------------------------------------------
-# No fallback that hides the device, and the sharded plane's stub
+# No fallback that hides the device; the sharded plane's names
 # ---------------------------------------------------------------------------
 
 def test_torch_plane_defaults_to_the_card():
@@ -388,12 +388,15 @@ def test_torch_plane_defaults_to_the_card():
     assert T.Experiment().data_plane == "torch"
     assert CPU.device.type == "cpu"
     assert T.get_plane("torch-cpu").device.type == "cpu"
-    assert set(T.available_planes()) == {"numpy", "torch", "torch-cpu"}
+    assert set(T.available_planes()) == {"numpy", "torch", "torch-cpu",
+                                         "sharded", "sharded-cpu"}
 
 
-def test_sharded_plane_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        T.get_plane("sharded")
+def test_sharded_cpu_resolves_to_a_shared_sharded_plane():
+    plane = T.get_plane("sharded-cpu")
+    assert isinstance(plane, T.ShardedTorchPlane)
+    assert plane is T.get_plane("sharded-cpu")
+    assert plane.name == "sharded" and plane.device.type == "cpu"
     with pytest.raises(ValueError, match="unknown data plane"):
         T.get_plane("jax")
 
