@@ -65,7 +65,22 @@ paths at realistic sizes:
   same step on the CPU and K6's backward against the reference
   attention's at one layer's shape; and (phase ``train_moe``)
   qwen2-moe-a2.7b at full width with its depth cut to 4 layers, K5
-  twice a MoE layer a step, its counts exact.
+  twice a MoE layer a step, its counts exact;
+- the sharded LM path (phase ``serve_mesh``): phase ``serve``'s model
+  and replica 0's traffic on a (1, 1) ("data", "model") mesh of a
+  one-rank NCCL group — DTensor weights over the same tensors
+  (``param_shardings``), the cache by ``cache_shardings``, the
+  activation constraint on — its logits against the unsharded path's
+  in the same call (bit for bit, or within 4 bf16 steps), K5 and K6
+  launched as often, prefill seconds and decode ms beside the unsharded
+  ones (DTensor's host cost on one card);
+- the dry run (phase ``dryrun``): ``python -m
+  repro_torch.launch.dryrun`` in a child process a cell on the 16×16
+  production mesh (a fake process group of 256 ranks, fake shards, no
+  card used) for internlm2-1.8b × train_4k, qwen2-moe-a2.7b ×
+  decode_32k, jamba-v0.1-52b × long_500k and hubert-xlarge ×
+  prefill_32k: status ok, per-device parameter bytes equal to the
+  sharding rules' shard sizes, 0 < useful fraction ≤ 1.5.
 
 K5 is also held bit for bit to its written-out float32 sum order
 (``kernels/moe_histogram/order.py``) and timed beside an empty kernel,
@@ -83,8 +98,9 @@ at its last decode input (the launches of its decode and merge
 kernels); each wrapper counts every kernel it launches, and K4's and
 K6's rows split their count by kernel, K1's row by path (``main`` and
 ``sharded``, the three shard counts summed), and K5's and K6's by path
-(``serve`` and ``serve_hybrid``).  K2–K4's operation bounds count one
-instruction per lane and clock (SINGLE_ISSUE_OPS_PER_S).
+(``serve``, ``serve_hybrid`` and ``serve_mesh``).  K2–K4's operation
+bounds count one instruction per lane and clock
+(SINGLE_ISSUE_OPS_PER_S).
 
 Each phase prints one JSON line; then the card's name and power limit
 as nvidia-smi gives them, the ``kernels`` line, and last
@@ -207,6 +223,15 @@ K6_CASES = (
     ("jamba decode", HYBRID_BATCH, 32, 8, 1, LM_PROMPT + LM_STEPS, 128,
      "bfloat16", None, LM_PROMPT + LM_STEPS - 2),
 )
+
+# phase dryrun: the cells `python -m repro_torch.launch.dryrun` traces
+# on the 16×16 production mesh (a fake process group of 256 ranks, one
+# child process a cell), each within DRYRUN_TIMEOUT seconds
+DRYRUN_CELLS = (("internlm2_1_8b", "train_4k"),
+                ("qwen2_moe_a2_7b", "decode_32k"),
+                ("jamba_v0_1_52b", "long_500k"),
+                ("hubert_xlarge", "prefill_32k"))
+DRYRUN_MESH, DRYRUN_TIMEOUT = {"data": 16, "model": 16}, 300
 
 # the TPU kernel each CUDA kernel replaces
 REPLACES = {
@@ -1523,6 +1548,199 @@ def phase_serve(torch, kern, LS, L, MOE, device) -> dict:
             "mh": mh.calls, "batch": out["batch"], "layers": layers}
 
 
+def _serve_calls(torch, M, cfg, params, prompts, cache, constraint, place,
+                 teacher=None):
+    """Prefill ``prompts`` and LM_STEPS − 1 greedy decode calls (fed
+    ``teacher``'s tokens when given), timed with the card drained:
+    (prefill s, decode s, logits of every call, the greedy tokens)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, _ = M.prefill(params, cfg, token_ids=place(prompts),
+                                 max_seq=LM_PROMPT + LM_STEPS, cache=cache,
+                                 constraint=constraint)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    outs, toks = [logits], [tok]
+    t0 = time.perf_counter()
+    for i in range(LM_STEPS - 1):
+        feed = tok if teacher is None else teacher[i]
+        logits, cache, _ = M.decode_step(params, cfg, cache, place(feed),
+                                         constraint=constraint)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        outs.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    return prefill_s, time.perf_counter() - t0, outs, toks
+
+
+def phase_serve_mesh(torch, np, kern, M, configs, serve, device) -> dict:
+    """Phase serve's model (qwen2-moe-a2.7b at full width and depth, the
+    seed-0 weights) and replica 0's traffic (its batch prefilled at
+    LM_PROMPT tokens, LM_STEPS − 1 decode calls) on a (1, 1) ("data",
+    "model") mesh of a one-rank NCCL group: the weights placed by
+    ``param_shardings`` (``DTensor.from_local`` on the same tensors, no
+    copy), the cache by ``cache_shardings``, ``make_constraint`` on,
+    beside the same calls unsharded in the same call.  The sharded run
+    is fed the unsharded run's greedy tokens.  Gates: every logit equal
+    to the unsharded path's (bit for bit expected; within serving's 4
+    bf16 steps at the largest logit, else), K5 and K6 launched as often.
+    The group is destroyed before the phase returns."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import cache_shardings
+    cfg = configs.get_config(LM_ARCH)
+    batch = serve["batch"]
+    _free_card(torch)
+    params = M.init_params(cfg, 0, device=device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, LM_PROMPT)).astype(np.int32)).to(device)
+    out = {}
+    with tf32(torch, False):
+        reset_launches(kern)
+        torch.cuda.reset_peak_memory_stats()
+        pre, dec, plain, teacher = _serve_calls(torch, M, cfg, params,
+                                                prompts, None, None,
+                                                lambda t: t)
+        out["plain"] = {"prefill_s": pre, "decode_s": dec,
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated(),
+                        "launches": read_launches(kern),
+                        "by_kernel": read_by_kernel(kern)}
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device(
+                                    "cuda", torch.cuda.current_device()))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            placed = SH.shard_params(params, SH.param_shardings(cfg, mesh))
+            check(all(p.to_local().data_ptr() == q.data_ptr() for p, q in
+                      zip(_tree_leaves(placed), _tree_leaves(params))),
+                  "serve_mesh: the placed weights are copies")
+            cache = SH.shard_params(
+                M.init_cache(cfg, batch, LM_PROMPT + LM_STEPS,
+                             device=device),
+                cache_shardings(cfg, mesh, batch, LM_PROMPT + LM_STEPS))
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(kern)
+            with implicit_replication():
+                pre, dec, sharded, _ = _serve_calls(
+                    torch, M, cfg, placed, prompts, cache,
+                    SH.make_constraint(mesh),
+                    lambda t: SH.shard_tensor(t, SH.batch_sharding(mesh, 2)),
+                    teacher=teacher)
+                sharded = [t.to_local() for t in sharded]
+            out["mesh"] = {"prefill_s": pre, "decode_s": dec,
+                           "max_memory_allocated":
+                               torch.cuda.max_memory_allocated(),
+                           "launches": read_launches(kern),
+                           "by_kernel": read_by_kernel(kern)}
+        finally:
+            dist.destroy_process_group()
+    exact = all(torch.equal(a, b) for a, b in zip(sharded, plain))
+    largest = max(float(t.float().abs().max()) for t in plain)
+    tol = 4 * 2.0 ** (math.floor(math.log2(largest)) - 7)
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(sharded, plain))
+    check(exact or worst <= tol, f"serve_mesh: logits differ from the "
+          f"unsharded path by {worst} (4 bf16 steps: {tol})")
+    check(out["mesh"]["launches"] == out["plain"]["launches"]
+          and out["mesh"]["by_kernel"] == out["plain"]["by_kernel"],
+          f"serve_mesh: launches {out['mesh']['launches']} against the "
+          f"unsharded path's {out['plain']['launches']}")
+    for run in out.values():
+        run["decode_ms_per_call"] = run["decode_s"] / (LM_STEPS - 1) * 1e3
+    emit({"phase": "serve_mesh", "arch": LM_ARCH, "batch": batch,
+          "prompt_len": LM_PROMPT, "decode_calls": LM_STEPS - 1,
+          "mesh": [["data", 1], ["model", 1]], "bit_for_bit": exact,
+          "max_abs_diff": worst, "tolerance": tol, **out})
+    del params, placed, cache, plain, sharded
+    _free_card(torch)
+    return {"launches": out["mesh"]["launches"],
+            "by_kernel": out["mesh"]["by_kernel"]}
+
+
+def _rules_param_bytes(SH, configs, M, arch: str, train: bool) -> int:
+    """Per-device parameter bytes of ``arch`` on DRYRUN_MESH by the
+    sharding rules' arithmetic: each leaf's elements over the product of
+    the mesh axes its spec names, at float32 (training's masters) or at
+    ``init_params``'s types (serving)."""
+    import types
+    mesh = types.SimpleNamespace(shape=DRYRUN_MESH,
+                                 axis_names=tuple(DRYRUN_MESH))
+    cfg = configs.get_config(arch)
+    total = 0
+    for (path, leaf), (_, sh) in zip(
+            _items(M.abstract_params(cfg)),
+            _items(SH.param_shardings(cfg, mesh))):
+        split = math.prod(DRYRUN_MESH[a] for entry in sh.spec if entry
+                          for a in (entry if isinstance(entry, tuple)
+                                    else (entry,)))
+        keys = tuple(k for k in path if isinstance(k, str))
+        wide = train or M.keeps_float32(keys) or cfg.dtype != "bfloat16"
+        total += leaf.numel() // split * (4 if wide else 2)
+    return total
+
+
+def _items(tree) -> list:
+    from repro_torch import tree as TR
+    return list(TR.items(tree))
+
+
+def phase_dryrun(SH, configs, M) -> None:
+    """``python -m repro_torch.launch.dryrun`` on the 16×16 production
+    mesh for DRYRUN_CELLS, one child process a cell (a fake process
+    group of 256 ranks each; fake CUDA shards, no card used).  Prints
+    each record's status, per-device bytes, FLOPs, collective bytes by
+    kind, dominant term, trace seconds and K5/K6 op calls.  Gates:
+    status ok, per-device parameter bytes equal to the rules' shard
+    sizes, 0 < useful_fraction ≤ 1.5."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape in DRYRUN_CELLS:
+            res = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", d],
+                capture_output=True, text=True, timeout=DRYRUN_TIMEOUT,
+                env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+            path = os.path.join(d, f"{arch}__{shape}__16x16.json")
+            check(res.returncode == 0 and os.path.exists(path),
+                  f"dryrun {arch} × {shape}: exit {res.returncode}\n"
+                  f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+            with open(path) as f:
+                rec = json.load(f)
+            rl, mem = rec["roofline"], rec["memory"]
+            emit({"phase": "dryrun", "arch": arch, "shape": shape,
+                  "mesh": rec["mesh"], "status": rec["status"],
+                  "fake_device": rec["fake_device"],
+                  "argument_bytes_by_group": mem["argument_bytes_by_group"],
+                  "eager_peak_bytes": mem["eager_peak_bytes"],
+                  "flops_per_device": rl["flops_per_device"],
+                  "traced_flops_per_device": rl["traced_flops_per_device"],
+                  "collectives": rl["collectives"],
+                  "collective_ops": rl["collective_ops"],
+                  "dominant": rl["dominant"], "t_compute": rl["t_compute"],
+                  "t_memory": rl["t_memory"],
+                  "t_collective": rl["t_collective"],
+                  "useful_fraction": rec["model"]["useful_fraction"],
+                  "build_s": rec["build_s"], "trace_s": rec["trace_s"],
+                  "kernel_calls": rec["kernel_calls"]})
+            check(rec["status"] == "ok", f"dryrun {arch} × {shape}: "
+                  f"{rec.get('error')}")
+            want = _rules_param_bytes(SH, configs, M, arch,
+                                      rec["kind"] == "train")
+            check(mem["argument_bytes_by_group"]["params"] == want,
+                  f"dryrun {arch} × {shape}: parameter bytes "
+                  f"{mem['argument_bytes_by_group']['params']}, the rules "
+                  f"give {want}")
+            check(0 < rec["model"]["useful_fraction"] <= 1.5,
+                  f"dryrun {arch} × {shape}: useful fraction "
+                  f"{rec['model']['useful_fraction']}")
+
+
 def _breakdown(prof, wall: float, calls: int) -> dict:
     """Device seconds of a profiled window by kind: kernels K6 and K5 by
     name, the expert FFNs as ``aten::bmm`` and every other product as
@@ -2763,6 +2981,7 @@ def main() -> int:
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
     from repro_torch.models import xlstm as XL
+    from repro_torch.distributed import sharding as SH
     kern = {"stats_update": SU, "spatial_match": SM, "keyword_match": KM,
             "knn_match": KN, "moe_histogram": MH, "flash_attention": FA}
 
@@ -2820,6 +3039,9 @@ def main() -> int:
     fa_by = serve["by_kernel"]["flash_attention"]   # K6's launches by kernel
     phase_serve_profile(torch, M, MH, configs, serve, device)
     phase_serve_check(torch, kern, FA, MH, L, MOE, M, configs, device)
+    mesh_run = phase_serve_mesh(torch, np, kern, M, configs, serve, device)
+    mesh_launches = mesh_run["launches"]
+    mesh_by = mesh_run["by_kernel"]["flash_attention"]
 
     # the kernels line: each kernel at the input its path gave it — K1 at
     # the main path's last round-close input, K2 and K4 at phase match's
@@ -2864,6 +3086,7 @@ def main() -> int:
     phase_train(torch, kern, LT, M, configs, device)
     phase_train_check(torch, kern, FA, L, M, TR, configs, device)
     phase_train_moe(torch, kern, TR, M, MH, MOE, configs, device)
+    phase_dryrun(SH, configs, M)
     emit({"library_ms": {
         "spatial_match": "null: no single PyTorch call computes the "
                          "inclusive containment counts of both sides",
@@ -2903,25 +3126,29 @@ def main() -> int:
         row("knn_match", match["by_kernel"],
             max(worst_k4, k4["max_abs_err"]), k4),
         row("moe_histogram",
-            lm_launches["moe_histogram"] + hy_launches["moe_histogram"],
+            lm_launches["moe_histogram"] + hy_launches["moe_histogram"]
+            + mesh_launches["moe_histogram"],
             max(worst_k5, lm["prefill"]["moe_histogram"]["max_abs_err"]),
             lm["prefill"]["moe_histogram"],
             lm["prefill"]["moe_histogram"]["library_ms"],
             by_path={"serve": lm_launches["moe_histogram"],
-                     "serve_hybrid": hy_launches["moe_histogram"]}),
+                     "serve_hybrid": hy_launches["moe_histogram"],
+                     "serve_mesh": mesh_launches["moe_histogram"]}),
         row("flash_attention",
-            {n: fa_by[n] + hy_by[n] for n in ("flash_mma", "flash_tile")},
+            {n: fa_by[n] + hy_by[n] + mesh_by[n]
+             for n in ("flash_mma", "flash_tile")},
             max(worst_k6["prefill"],
                 lm["prefill"]["flash_attention"]["max_abs_err"]),
             lm["prefill"]["flash_attention"],
             lm["prefill"]["flash_attention"]["library_ms"],
             by_path={p: sum(by[n] for n in ("flash_mma", "flash_tile"))
                      for p, by in (("serve", fa_by),
-                                   ("serve_hybrid", hy_by))}),
+                                   ("serve_hybrid", hy_by),
+                                   ("serve_mesh", mesh_by))}),
         # the same source's decode kernels at the serve path's decode input
         row("flash_attention_decode",
-            {n: fa_by[n] + hy_by[n] for n in ("flash_decode",
-                                              "flash_merge")},
+            {n: fa_by[n] + hy_by[n] + mesh_by[n]
+             for n in ("flash_decode", "flash_merge")},
             max(worst_k6["decode"],
                 lm["decode"]["flash_attention"]["max_abs_err"]),
             lm["decode"]["flash_attention"],
@@ -2929,7 +3156,8 @@ def main() -> int:
             source="flash_attention",
             by_path={p: sum(by[n] for n in ("flash_decode", "flash_merge"))
                      for p, by in (("serve", fa_by),
-                                   ("serve_hybrid", hy_by))})]})
+                                   ("serve_hybrid", hy_by),
+                                   ("serve_mesh", mesh_by))})]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,15 +8,24 @@ reference's tree (``params['blocks']['pos0']['attn']['wq']``,
 ``opt['count']``): a model tree in the port's per-layer layout is
 stacked over the periods first (``models.convert.to_jax_layout``), so a
 checkpoint written by either package restores into the other.  The
-manifest records step, config name, mesh (none), ``extra`` and the
-sorted keys.
+manifest records step, config name, the writing mesh's axes and sizes
+(``[[name, size], …]``, as the reference writes them; none without a
+mesh), ``extra`` and the sorted keys.
 
 ``restore`` takes templates — meta tensors (``models.abstract_params``,
 ``train.abstract_opt_state``) or any tensors of the target shapes and
 types — and returns tensors on the device the caller names, the card by
 default, each leaf its own storage.  A model tree needs its ``cfg`` to
-find the periods.  Meshes and shardings are not ported (ROADMAP Queue 1
-item 9e) and raise.
+find the periods.
+
+Sharded trees: ``save`` takes DTensor leaves and writes the whole
+tensors (each gathered on every rank, a collective all ranks join; rank
+0 writes), so a checkpoint does not depend on the mesh that wrote it.
+Elastic restore: ``restore`` takes the *target* shardings
+(``distributed.sharding.param_shardings``, ``train.opt_state_shardings``)
+and places each leaf on its mesh, every rank keeping its own piece — a
+checkpoint written on one device restores onto a 2×2 mesh, or any
+other; no collective is needed.
 """
 from __future__ import annotations
 
@@ -27,14 +36,10 @@ import numpy as np
 import torch
 
 from .. import tree as T
+from ..distributed.sharding import shard_params, whole
+from ..launch.mesh import mesh_shape
 from ..models.convert import to_jax_layout
 from ..models.model import unstack
-
-
-def _sharding_not_ported(what: str):
-    return NotImplementedError(
-        f"checkpoint {what}: meshes and shardings are not ported to "
-        "PyTorch yet (ROADMAP Queue 1 item 9e)")
 
 
 def _is_model(node) -> bool:
@@ -66,19 +71,22 @@ def _reference_tree(node, cfg):
 
 def save(directory: str, step: int, *, params, opt_state=None, extra=None,
          mesh=None, config_name: str = "", cfg=None) -> str:
-    if mesh is not None:
-        raise _sharding_not_ported("mesh")
     out = os.path.join(directory, f"step_{step:08d}")
-    os.makedirs(out, exist_ok=True)
     arrays = {}
     for prefix, tree in (("params", params), ("opt", opt_state)):
         if tree is None:
             continue
-        for path, leaf in T.items(_reference_tree(tree, cfg)):
+        tree = _reference_tree(T.map(whole, tree), cfg)
+        for path, leaf in T.items(tree):
             arrays[f"{prefix}{T.keystr(path)}"] = _numpy(leaf)
+    if torch.distributed.is_initialized() and torch.distributed.get_rank():
+        return out
+    os.makedirs(out, exist_ok=True)
     np.savez(os.path.join(out, "arrays.npz"), **arrays)
     manifest = {
-        "step": step, "config": config_name, "mesh": None,
+        "step": step, "config": config_name,
+        "mesh": (list(map(list, mesh_shape(mesh).items())) if mesh
+                 else None),
         "extra": extra or {},
         "keys": sorted(arrays.keys()),
     }
@@ -101,9 +109,8 @@ def latest_step(directory: str) -> int | None:
 def restore(directory: str, step: int, *, abstract_params,
             abstract_opt=None, param_shardings=None, opt_shardings=None,
             cfg=None, device="cuda"):
-    """Returns (params, opt_state, manifest) on ``device``."""
-    if param_shardings is not None or opt_shardings is not None:
-        raise _sharding_not_ported("shardings")
+    """Returns (params, opt_state, manifest) on ``device``; a tree with
+    its shardings given comes back as DTensors on their meshes."""
     src = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(src, "manifest.json")) as f:
         manifest = json.load(f)
@@ -134,7 +141,11 @@ def restore(directory: str, step: int, *, abstract_params,
         return tensor(data[key], node, key)
 
     params = load("params", abstract_params)
+    if param_shardings is not None:
+        params = shard_params(params, param_shardings, copy=True)
     opt = load("opt", abstract_opt) if abstract_opt is not None else None
+    if opt is not None and opt_shardings is not None:
+        opt = shard_params(opt, opt_shardings, copy=True)
     return params, opt, manifest
 
 

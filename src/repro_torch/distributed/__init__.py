@@ -1,5 +1,5 @@
-"""Distribution: SWARM expert placement.  The reference's mesh-aware
-``sharding`` module is not ported yet (ROADMAP Queue 1 item 9e)."""
+"""Distribution: SWARM expert placement, and the logical-axis sharding
+rules on DTensor (``sharding``)."""
 from .moe_placement import ExpertBalancer
 
 __all__ = ["ExpertBalancer"]

@@ -25,16 +25,30 @@ kernel launches, so a run can show it went through the kernels, and
 ``launches_by_kernel`` splits them by kernel: a decode step of more than
 one key chunk launches ``flash_decode`` and then ``flash_merge``.  When
 autograd records (grad enabled and any of q, k, v requiring grad) the
-CUDA call goes through ``autograd.FlashAttentionFn``: the same kernel
-forward, and a backward that recomputes the reference's attention; in
-every other case (serving, ``no_grad``, decode) it launches the kernel
-bare.  Either way a kernel that does not build or launch raises.
+call, on either device, goes through ``autograd.FlashAttentionFn``: the
+same op forward, and a backward that recomputes the reference's
+attention; in every other case (serving, ``no_grad``, decode) it calls
+the op bare.  Either way a kernel that does not build or launch raises.
+
+The wrapper reaches the kernels through the ``torch.library`` op
+``repro_torch::flash_attention`` (:func:`attention_op`): its CUDA
+implementation is :func:`kernel_attention`, its CPU implementation the
+plain version, and the device of the tensors chooses.  It is defined
+with ``torch.library.Library``, not the ``custom_op`` decorator, whose
+Python wrapper costs host time every call and imports ``torch._dynamo``
+at the first.  The op has a
+fake implementation (the output's shape, type and strides; no launch),
+so it traces under ``FakeTensorMode``; DTensor sharding rules, so a
+DTensor call runs the op on each rank's shards; and a FLOP formula
+(:func:`attention_flops`), so ``FlopCounterMode`` and the dry run count
+it.
 """
 import ctypes
 import functools
 import math
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,9 +56,10 @@ from .. import _build
 from .autograd import FlashAttentionFn
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "kernel_attention", "launch", "build", "bind",
-           "decode_chunks", "padded_head_dim", "SOURCE", "HEAD_DIMS",
-           "ROW_MAX", "KERNELS", "launches", "launches_by_kernel"]
+__all__ = ["flash_attention", "attention_op", "attention_flops", "kernel_attention", "launch", "build", "bind",
+           "decode_chunks", "padded_head_dim", "visible_pairs", "SOURCE",
+           "HEAD_DIMS", "ROW_MAX", "KERNELS", "launches",
+           "launches_by_kernel"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "flash_attention.cu")
@@ -150,17 +165,102 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset`` is the absolute position of q's first row (a decode
     step's cache offset)."""
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash_attention kernel for {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
-                                      kernel_attention)
+                                      _op_forward)
+    return attention_op(q, k, v, causal, window, q_offset)
+
+
+def _op_forward(q, k, v, *, causal, window, q_offset):
+    return attention_op(q, k, v, causal, window, q_offset)
+
+
+def _attention_cuda(q, k, v, causal, window, q_offset):
+    """The op on CUDA tensors: the kernels (:func:`kernel_attention`) on
+    inputs as :func:`flash_attention` checks them (each rank's shards,
+    under DTensor)."""
+    _check(q, k, v, window)
     return kernel_attention(q, k, v, causal=causal, window=window,
                             q_offset=q_offset)
+
+
+def _attention_cpu(q, k, v, causal, window, q_offset):
+    """The op on CPU tensors: the plain version, returned in q's strides
+    as the kernels' output and the fake's are (DTensor plans its views
+    on the fake's)."""
+    _check(q, k, v, window)
+    return torch.empty_like(q).copy_(attention_ref(
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
+
+
+def _attention_fake(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q)
+
+
+# K6 as the op ``repro_torch::flash_attention`` (a plain ``Library``
+# definition: its calls go through the C++ dispatcher alone)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int? window, int q_offset) -> Tensor")
+_LIB.impl("flash_attention", _attention_cuda, "CUDA")
+_LIB.impl("flash_attention", _attention_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_attention", _attention_fake,
+                            lib=_LIB)
+attention_op = torch.ops.repro_torch.flash_attention.default
+
+
+def visible_pairs(s: int, skv: int, causal: bool, window,
+                  q_offset: int) -> int:
+    """Keys the S query rows may see, summed over the rows (row i at
+    position i + q_offset)."""
+    rows = np.arange(s, dtype=np.int64) + q_offset
+    lo = np.maximum(0, rows - window + 1) if window else np.zeros_like(rows)
+    hi = np.minimum(skv, rows + 1) if causal else np.full_like(rows, skv)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_flops(q_shape, k_shape, causal, window, q_offset) -> int:
+    """K6's operations: 4·D per visible (query, key) pair and head (Q·Kᵀ
+    and P·V, a multiply-add counted as two), as ``chip_smoke.py``'s
+    ``k6_cost`` counts them."""
+    b, h, s, d = q_shape
+    return 4 * d * b * h * visible_pairs(s, k_shape[2], causal, window,
+                                         q_offset)
+
+
+def _register_rules() -> None:
+    """The op's FLOP formula and DTensor sharding rules: batch sharded
+    (q, k, v and out on dim 0), heads sharded (q and out on dim 1 with k
+    and v on dim 1 — q heads and kv heads split together, offered where
+    every mesh axis divides Hkv, so that each GQA group stays on one
+    rank), or all replicated.  A KV cache sharded along its sequence has
+    no rule (a softmax does not combine across shards without its
+    log-sum-exp): DTensor gathers it first."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _flops(q, k, v, causal, window, q_offset, *, out_shape=None,
+               **kwargs):
+        return attention_flops(q, k, causal, window, q_offset)
+
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _attention_sharding(q, k, v, causal, window, q_offset):
+        out = [([Shard(0)], [Shard(0)] * 3 + [None] * 3)]
+        if all(k.shape[1] % q.mesh.size(i) == 0 for i in range(q.mesh.ndim)):
+            out.append(([Shard(1)], [Shard(1)] * 3 + [None] * 3))
+        out.append(([Replicate()], [Replicate()] * 3 + [None] * 3))
+        return out
+
+
+_register_rules()
 
 
 def kernel_attention(q, k, v, *, causal: bool = True, window=None,

@@ -13,6 +13,15 @@ is one kernel launch; its scratch rows and ticket are cached per
 through the kernel.  The launch geometry is chosen here
 (:func:`geometry`); the constants it is sized with reach the kernel as
 nvcc defines (:data:`DEFINES`), so they are stated here alone.
+
+The wrapper reaches the kernel through the ``torch.library`` op
+``repro_torch::moe_histogram`` (defined as K6's is) (:func:`histogram_op`, one (2, E) output:
+the counts and the load): its CUDA implementation is :func:`launch`, its
+CPU implementation the plain version, and the device of the ids
+chooses.  It has a fake implementation (no launch) and DTensor sharding
+rules: ids and gates sharded along the assignments give each rank its
+shard's histogram, a ``Partial`` sum over that mesh axis; or all
+replicated.
 """
 import ctypes
 import functools
@@ -24,8 +33,8 @@ import torch
 from .. import _build
 from .ref import moe_histogram_ref
 
-__all__ = ["moe_histogram", "launch", "build", "bind", "geometry",
-           "SOURCE", "MAX_EXPERTS", "launches"]
+__all__ = ["moe_histogram", "histogram_op", "launch", "build", "bind",
+           "geometry", "SOURCE", "MAX_EXPERTS", "launches"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "moe_histogram.cu")
@@ -112,25 +121,70 @@ def moe_histogram(idx: torch.Tensor, gates: torch.Tensor, *,
     if not 1 <= num_experts <= MAX_EXPERTS:
         raise ValueError(f"num_experts={num_experts}: the histogram kernel "
                          f"supports 1 … {MAX_EXPERTS} experts")
-    if idx.device.type == "cpu":
-        return moe_histogram_ref(idx, gates, num_experts)
-    if idx.device.type != "cuda":
+    if idx.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no moe_histogram kernel for {idx.device}")
-    return launch(build(), idx, gates, num_experts)
+    out = histogram_op(idx, gates, num_experts)
+    return out[0], out[1]
+
+
+def _histogram_cuda(idx, gates, num_experts):
+    """The op on CUDA tensors: the kernel, into a new (2, E) tensor."""
+    out = torch.empty((2, num_experts), dtype=torch.float32,
+                      device=idx.device)
+    launch(build(), idx, gates, num_experts, out=out)
+    return out
+
+
+def _histogram_cpu(idx, gates, num_experts):
+    return torch.stack(moe_histogram_ref(idx, gates, num_experts))
+
+
+def _histogram_fake(idx, gates, num_experts):
+    return idx.new_empty((2, num_experts), dtype=torch.float32)
+
+
+# K5 as the op ``repro_torch::moe_histogram``: (2, E) float32, the counts
+# then the load (a plain ``Library`` definition: its calls go through the
+# C++ dispatcher alone)
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("moe_histogram(Tensor idx, Tensor gates, int num_experts) "
+            "-> Tensor")
+_LIB.impl("moe_histogram", _histogram_cuda, "CUDA")
+_LIB.impl("moe_histogram", _histogram_cpu, "CPU")
+torch.library.register_fake("repro_torch::moe_histogram", _histogram_fake,
+                            lib=_LIB)
+histogram_op = torch.ops.repro_torch.moe_histogram.default
+
+
+def _register_rules() -> None:
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.moe_histogram.default)
+    def _histogram_sharding(idx, gates, num_experts):
+        return [([Partial()], [Shard(0), Shard(0), None]),
+                ([Replicate()], [Replicate(), Replicate(), None])]
+
+
+_register_rules()
 
 
 def launch(kernel, idx: torch.Tensor, gates: torch.Tensor,
-           num_experts: int):
+           num_experts: int, out: torch.Tensor | None = None):
     """The histogram over checked CUDA inputs by ``kernel``, the
-    :func:`bind` of a build (:func:`moe_histogram` passes the shipped
-    build; ``variants.py`` scratch builds of cut sources)."""
+    :func:`bind` of a build (:func:`histogram_op` passes the shipped
+    build; ``variants.py`` scratch builds of cut sources): (counts,
+    load), the rows of ``out`` ((2, E) float32, new by default)."""
     global launches
     idx, gates = idx.contiguous(), gates.contiguous()
     n, e, dev = idx.numel(), num_experts, idx.device
     warps, steps, blocks, segments = geometry(n, e)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows, ticket = _rows_and_ticket(dev, stream, e, blocks)
-    out = torch.empty((2, e), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((2, e), dtype=torch.float32, device=dev)
     err = kernel(idx.data_ptr(), gates.data_ptr(), n, e, warps, steps,
                   blocks, segments, rows.data_ptr(), ticket.data_ptr(),
                   out.data_ptr(), stream, dev.index)

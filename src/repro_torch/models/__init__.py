@@ -4,13 +4,14 @@ attention on kernel K6 and the MoE expert histogram on kernel K5; the
 recurrences are loops of torch ops (``layers.segmented_scan``)."""
 from .config import MambaConfig, ModelConfig, MoEConfig, XLSTMConfig
 from .convert import from_jax_layout, from_jax_params, to_jax_layout
-from .model import (abstract_params, cache_spec, decode_step, forward,
-                    forward_hidden, init_cache, init_params, loss_fn,
-                    param_spec, prefill)
+from .model import (abstract_cache, abstract_params, cache_spec,
+                    decode_step, forward, forward_hidden, init_cache,
+                    init_params, loss_fn, param_spec, prefill)
 
 __all__ = [
     "ModelConfig", "MoEConfig", "MambaConfig", "XLSTMConfig",
     "param_spec", "abstract_params", "init_params", "forward", "prefill",
     "decode_step", "forward_hidden", "loss_fn", "cache_spec", "init_cache",
+    "abstract_cache",
     "from_jax_params", "to_jax_layout", "from_jax_layout",
 ]

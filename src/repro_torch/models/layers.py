@@ -20,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from .. import tree as T
@@ -67,6 +68,13 @@ def spec_leaves(spec):
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def no_constraint(x, logical_axes):
+    """The ``constraint`` of an unsharded run: ``x`` as it is.  A sharded
+    run passes ``distributed.sharding.make_constraint(mesh)``, which
+    places a DTensor activation by its logical axes."""
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +137,19 @@ def rmsnorm(p, x, eps=1e-6):
     xf = x.float()
     var = xf.square().mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + p["scale"].float())).to(x.dtype)
+    return (y * (1.0 + gathered(p["scale"]).float())).to(x.dtype)
+
+
+def gathered(w):
+    """A weight whole on every rank: a DTensor one gathered (for the
+    norm scales, which the sharding rules split over "model" along the
+    embedding dim that the activations keep whole — a few KB, where
+    following the scale's split would shard the activation and leave
+    the next product a partial sum), any other as it is."""
+    if isinstance(w, DTensor):
+        mesh = w.device_mesh
+        return w.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return w
 
 
 # ---------------------------------------------------------------------------
@@ -255,9 +275,14 @@ def sdpa_grad(q, k, v, grad, *, causal, window, q_offset):
 def _sdpa(q, k, v, *, causal, window, q_offset):
     """q (B, S, H, Dh); k, v (B, Hkv, Skv, Dh) → (B, S, H, Dh) on K6.
     The query is handed over as a (B, H, S, Dh) view and the output comes
-    back in the same strides, so neither side is copied."""
-    o = flash_attention(q.transpose(1, 2), k, v, causal=causal,
-                        window=window, q_offset=q_offset)
+    back in the same strides, so neither side is copied.  A DTensor query
+    is made dense first: DTensor plans the output's views on q's global
+    strides, which a redistribution of q does not keep on each rank."""
+    qt = q.transpose(1, 2)
+    if isinstance(qt, DTensor):
+        qt = qt.contiguous()
+    o = flash_attention(qt, k, v, causal=causal, window=window,
+                        q_offset=q_offset)
     return o.transpose(1, 2)
 
 
@@ -268,17 +293,20 @@ def _proj(x, w, dtype):
 
 
 def attention(p, x, cfg: ModelConfig, *, positions, kv_cache=None,
-              cache_offset=None):
+              cache_offset=None, constraint=None):
     """Returns (out, new_kv).  Without a cache new_kv is the (k, v) of x
     as (B, Hkv, S, Dh) views; with ``kv_cache = (k_cache, v_cache)``, each
     (B, Hkv, max_seq, Dh), x's keys and values are written into the cache
     in place at ``cache_offset`` and the queries attend over the whole
     cache (the causal mask hides the rows not yet written, and K6 never
     reads them)."""
+    cons = constraint or no_constraint
     dtype = x.dtype
     q = _proj(x, p["wq"], dtype)                 # (B, S, H, Dh)
     k = _proj(x, p["wk"], dtype)                 # (B, S, Hkv, Dh)
     v = _proj(x, p["wv"], dtype)
+    q = cons(q, ("batch", None, "heads", None))
+    k = cons(k, ("batch", None, "kv_heads", None))
     if not cfg.encoder_only:
         cos, sin = rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta,
                                     positions)
@@ -295,9 +323,10 @@ def attention(p, x, cfg: ModelConfig, *, positions, kv_cache=None,
         k_all, v_all, new_kv, q_offset = k, v, (k, v), 0
     o = _sdpa(q, k_all, v_all, causal=not cfg.encoder_only,
               window=cfg.sliding_window, q_offset=q_offset)
+    o = cons(o, ("batch", None, "heads", None))
     wo = p["wo"].to(dtype)
     out = o.reshape(*o.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
-    return out, new_kv
+    return cons(out, ("batch", None, "embed")), new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +365,8 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p, x, cfg: ModelConfig):
+def mlp(p, x, cfg: ModelConfig, constraint=None):
+    cons = constraint or no_constraint
     dtype = x.dtype
     if "w_gate" in p:
         g = x @ p["w_gate"].to(dtype)
@@ -345,7 +375,8 @@ def mlp(p, x, cfg: ModelConfig):
         h = act(g) * u
     else:
         h = gelu(x @ p["w_up"].to(dtype))
-    return h @ p["w_down"].to(dtype)
+    h = cons(h, ("batch", None, "ff"))
+    return cons(h @ p["w_down"].to(dtype), ("batch", None, "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +394,21 @@ def embedding_spec(cfg: ModelConfig):
 
 
 def embed_tokens(p, token_ids, cfg: ModelConfig):
-    return p["tok"][token_ids.long()].to(compute_dtype(cfg))
+    """The rows of the token ids, by ``F.embedding``: a gather, which
+    DTensor splits over a vocab-sharded table (index and ``index_put``
+    have no rule for it in every PyTorch release).  On a sharded table
+    each rank's rows are a masked partial sum; they are completed here,
+    and their gradient taken whole (DTensor cannot turn a partial sum
+    back into the masked one)."""
+    x = F.embedding(token_ids.long(), p["tok"]).to(compute_dtype(cfg))
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    whole = [Replicate() if isinstance(pl, Partial) else pl
+             for pl in x.placements]
+    local = x.redistribute(mesh, whole).to_local(grad_placements=whole)
+    return DTensor.from_local(local, mesh, whole, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def embed_frontend(p, feats, cfg: ModelConfig):

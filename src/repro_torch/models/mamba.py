@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import P, leaf, segmented_scan, silu
+from .layers import P, leaf, no_constraint, segmented_scan, silu
 
 
 def _dims(cfg: ModelConfig):
@@ -73,14 +73,16 @@ def _conv1d(p, x, d_conv: int, state=None):
     return y + p["conv_b"].to(x.dtype), new_state
 
 
-def mamba_block(p, x, cfg: ModelConfig, state=None):
+def mamba_block(p, x, cfg: ModelConfig, state=None, constraint=None):
     """x (B, S, d_model) → (out, new_state).
 
     state = (ssm_h (B, d_inner, d_state) f32, conv (B, d_conv−1, d_inner))
     for incremental decode; None for full-sequence processing."""
+    cons = constraint or no_constraint
     m, d_inner, _ = _dims(cfg)
     dtype = x.dtype
     xi, z = (x @ p["in_proj"].to(dtype)).chunk(2, -1)
+    xi = cons(xi, ("batch", None, "ff"))
     conv_state = state[1] if state is not None else None
     xi, new_conv = _conv1d(p, xi, m.d_conv, conv_state)
     xi = silu(xi)
@@ -101,7 +103,8 @@ def mamba_block(p, x, cfg: ModelConfig, state=None):
     h_last, ys = segmented_scan(step, h0, xs)
     y = ys.transpose(0, 1).float() + xi.float() * p["d_skip"].float()
     y = y.to(dtype) * silu(z)
-    return y @ p["out_proj"].to(dtype), (h_last, new_conv)
+    return (cons(y @ p["out_proj"].to(dtype), ("batch", None, "embed")),
+            (h_last, new_conv))
 
 
 def mamba_state_spec(cfg: ModelConfig, batch: int):

@@ -36,6 +36,8 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -295,6 +297,17 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int):
     return spec
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int):
+    """The cache on the ``meta`` device — shapes and types without
+    storage (the reference's ``abstract_cache``); the offset a Python
+    int, 0, as :func:`init_cache` gives it."""
+    out = {"offset": 0}
+    for k, (shape, dt) in cache_spec(cfg, batch, max_seq).items():
+        if k != "offset":
+            out[k] = torch.empty(shape, dtype=dt, device="meta")
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     out = {"offset": 0}
     for k, (shape, dt) in cache_spec(cfg, batch, max_seq).items():
@@ -338,16 +351,19 @@ _RECURRENT = {"mamba": MB.mamba_block, "mlstm": X.mlstm_block,
               "slstm": X.slstm_block}
 
 
-def _block(lp, x, cfg, mixer, ffn, positions, state, offset, placement):
+def _block(lp, x, cfg, mixer, ffn, positions, state, offset, placement,
+           constraint):
     """One block: (x, expert counts, aux loss).  ``state`` is the
     mixer's cache views (:data:`STATE_NAMES`) or None; the block writes
     its new state into them in place."""
     h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
         o, _ = L.attention(lp["attn"], h, cfg, positions=positions,
-                           kv_cache=state, cache_offset=offset)
+                           kv_cache=state, cache_offset=offset,
+                           constraint=constraint)
     else:
-        o, new = _RECURRENT[mixer](lp[mixer], h, cfg, state=state)
+        o, new = _RECURRENT[mixer](lp[mixer], h, cfg, state=state,
+                                   constraint=constraint)
         for dst, src in zip(state or (), new):
             dst.copy_(src)
     x = x + o
@@ -355,13 +371,14 @@ def _block(lp, x, cfg, mixer, ffn, positions, state, offset, placement):
         return x, None, None
     h2 = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
     if ffn == "mlp":
-        return x + L.mlp(lp["ffn"], h2, cfg), None, None
-    o2, moe_aux = MOE.moe_ffn(lp["ffn"], h2, cfg, placement=placement)
+        return x + L.mlp(lp["ffn"], h2, cfg, constraint), None, None
+    o2, moe_aux = MOE.moe_ffn(lp["ffn"], h2, cfg, placement=placement,
+                              constraint=constraint)
     return x + o2, moe_aux["expert_counts"], moe_aux["aux_loss"]
 
 
 def _layers(params, x, cfg, *, positions, cache=None, offset=0,
-            placement=None, remat=None):
+            placement=None, constraint=None, remat=None):
     """Every block in order; with a cache, each layer reads and writes
     its state in its kind's cache tensors (an attention layer its keys
     and values, a recurrent layer its state).  ``remat`` (a name of
@@ -383,7 +400,7 @@ def _layers(params, x, cfg, *, positions, cache=None, offset=0,
         state = (None if cache is None
                  else tuple(cache[name][j] for name in STATE_NAMES[mixer]))
         x, c, a = block(lp, x, cfg, mixer, ffn, positions, state, offset,
-                        placement)
+                        placement, constraint)
         if c is not None:
             counts = counts + c
             aux_loss = aux_loss + a
@@ -391,72 +408,113 @@ def _layers(params, x, cfg, *, positions, cache=None, offset=0,
 
 
 def forward(params, cfg: ModelConfig, *, token_ids=None, embeds=None,
-            placement=None):
+            placement=None, constraint=None):
     """Full-sequence logits (B, S, V) + aux.  For frontend archs pass
     ``embeds`` (precomputed patch/frame features)."""
-    x = _embed(params, cfg, token_ids, embeds)
+    cons = constraint or L.no_constraint
+    x = cons(_embed(params, cfg, token_ids, embeds), ("batch", None, "embed"))
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _layers(params, x, cfg, positions=positions,
-                     placement=placement)
+                     placement=placement, constraint=constraint)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.lm_head(params, x, cfg), aux
+    return cons(L.lm_head(params, x, cfg), ("batch", None, "vocab")), aux
 
 
 def prefill(params, cfg: ModelConfig, *, token_ids=None, embeds=None,
-            max_seq: int | None = None, placement=None):
+            max_seq: int | None = None, placement=None, constraint=None,
+            cache=None):
     """Forward + cache construction for serving: (logits of the last
-    position (B, 1, V), cache, aux)."""
-    x = _embed(params, cfg, token_ids, embeds)
+    position (B, 1, V), cache, aux).  ``cache`` is the cache to fill
+    (``init_cache``'s, or a sharded run's placed by
+    ``serve.engine.cache_shardings``); a new one by default."""
+    cons = constraint or L.no_constraint
+    x = cons(_embed(params, cfg, token_ids, embeds), ("batch", None, "embed"))
     b, s = x.shape[0], x.shape[1]
-    cache = init_cache(cfg, b, max_seq or s, device=x.device)
+    if cache is None:
+        cache = init_cache(cfg, b, max_seq or s, device=x.device)
     positions = torch.arange(s, device=x.device)
     x, aux = _layers(params, x, cfg, positions=positions, cache=cache,
-                     offset=0, placement=placement)
+                     offset=0, placement=placement, constraint=constraint)
     cache["offset"] = s
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return L.lm_head(params, x, cfg), cache, aux
 
 
 def decode_step(params, cfg: ModelConfig, cache, token_ids,
-                placement=None):
+                placement=None, constraint=None):
     """One incremental token: token_ids (B, 1) → (logits (B, 1, V),
     cache, aux).  The cache tensors are updated in place; the returned
     cache shares them, with the offset advanced by one."""
-    x = _embed(params, cfg, token_ids=token_ids)
+    cons = constraint or L.no_constraint
+    x = cons(_embed(params, cfg, token_ids=token_ids),
+             ("batch", None, "embed"))
     offset = int(cache["offset"])
     positions = torch.full((x.shape[0], 1), offset, device=x.device)
     x, aux = _layers(params, x, cfg, positions=positions, cache=cache,
-                     offset=offset, placement=placement)
+                     offset=offset, placement=placement,
+                     constraint=constraint)
     new_cache = dict(cache, offset=offset + 1)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.lm_head(params, x, cfg), new_cache, aux
+    return (cons(L.lm_head(params, x, cfg), ("batch", None, "vocab")),
+            new_cache, aux)
 
 
 def forward_hidden(params, cfg: ModelConfig, *, token_ids=None, embeds=None,
-                   placement=None, remat=None):
+                   placement=None, constraint=None, remat=None):
     """Final-norm hidden states (B, S, D) + aux — the lm_head is applied
     downstream (chunked in the loss so full float32 logits never
     exist)."""
-    x = _embed(params, cfg, token_ids, embeds)
+    cons = constraint or L.no_constraint
+    x = cons(_embed(params, cfg, token_ids, embeds), ("batch", None, "embed"))
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _layers(params, x, cfg, positions=positions,
-                     placement=placement, remat=remat)
+                     placement=placement, constraint=constraint, remat=remat)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 CE_CHUNK = 512
 
 
-def _chunk_ce(params, cfg, x_c, y_c, m_c):
+def _chunk_ce(params, cfg, x_c, y_c, m_c, constraint=None):
     """(−Σ log p(y) over the chunk's kept positions, their count); the
     chunk's logits in float32."""
-    logits = L.lm_head(params, x_c, cfg).float()
+    cons = constraint or L.no_constraint
+    logits = cons(L.lm_head(params, x_c, cfg),
+                  ("batch", None, "vocab")).float()
+    if isinstance(logits, DTensor) and Shard(2) in logits.placements:
+        nll = _vocab_parallel_nll(logits, y_c)
+        return (nll * m_c).sum(), m_c.sum()
     lse = torch.logsumexp(logits, -1)
     picked = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
     return -((picked - lse) * m_c).sum(), m_c.sum()
 
 
-def _chunked_ce(params, cfg, x, labels, mask):
+def _vocab_parallel_nll(logits, labels):
+    """−log p(label) of vocab-sharded DTensor logits (B, S, V), a (B, S)
+    DTensor: each rank's rows go through ``F.cross_entropy`` on the
+    one-axis mesh that splits the vocab, where DTensor's
+    ``loss_parallel`` rules (the train step enters them) reduce over the
+    vocab shards in place of gathering the logits."""
+    mesh = logits.device_mesh
+    axis = list(logits.placements).index(Shard(2))
+    rows = [Replicate() if i == axis else p
+            for i, p in enumerate(logits.placements)]
+    local = logits.to_local()
+    b, s, _ = local.shape
+    n, v = b * s, logits.shape[2]
+    vocab = DTensor.from_local(local.reshape(n, -1),
+                               mesh[mesh.mesh_dim_names[axis]], [Shard(1)],
+                               run_check=False, shape=(n, v), stride=(v, 1))
+    target = labels.redistribute(mesh, rows).to_local().reshape(-1)
+    target = DTensor.from_local(target.long(), vocab.device_mesh,
+                                [Replicate()], run_check=False)
+    nll = F.cross_entropy(vocab, target, reduction="none").to_local()
+    return DTensor.from_local(nll.reshape(b, s), mesh, rows,
+                              run_check=False, shape=labels.shape,
+                              stride=labels.stride())
+
+
+def _chunked_ce(params, cfg, x, labels, mask, constraint=None):
     """Cross-entropy over sequence chunks of CE_CHUNK positions: each
     chunk's logits are computed, reduced and recomputed in the backward
     pass (``torch.utils.checkpoint``, the reference's
@@ -469,18 +527,20 @@ def _chunked_ce(params, cfg, x, labels, mask):
     for lo in range(0, s, size):
         dn, dd = checkpoint(_chunk_ce, params, cfg, x[:, lo:lo + size],
                             labels[:, lo:lo + size], mask[:, lo:lo + size],
-                            use_reentrant=False)
+                            constraint, use_reentrant=False)
         num, den = num + dn, den + dd
     return num / den.clamp_min(1.0)
 
 
-def loss_fn(params, cfg: ModelConfig, batch, placement=None, remat=None):
+def loss_fn(params, cfg: ModelConfig, batch, placement=None, constraint=None,
+            remat=None):
     """Next-token (causal) or per-frame (encoder) cross-entropy, with the
     vocab projection chunked over the sequence; the MoE aux loss added
     at ``router_aux_weight``.  Returns (loss, aux)."""
     x, aux = forward_hidden(params, cfg, token_ids=batch.get("tokens"),
                             embeds=batch.get("embeds"),
-                            placement=placement, remat=remat)
+                            placement=placement, constraint=constraint,
+                            remat=remat)
     labels = batch["labels"]
     if cfg.encoder_only:
         mask = (labels >= 0).float()
@@ -490,7 +550,7 @@ def loss_fn(params, cfg: ModelConfig, batch, placement=None, remat=None):
         mask = torch.cat([(labels[:, 1:] >= 0).float(),
                           torch.zeros_like(labels[:, :1], dtype=torch.float32)],
                          1)
-    loss = _chunked_ce(params, cfg, x, tgt, mask)
+    loss = _chunked_ce(params, cfg, x, tgt, mask, constraint)
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux["aux_loss"]
     return loss, aux

@@ -17,12 +17,17 @@ PyTorch version for CPU tensors.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.moe_histogram import moe_histogram
 from .config import ModelConfig, MoEConfig
-from .layers import P, leaf
+from .layers import P, leaf, no_constraint
 
 
 def moe_spec(cfg: ModelConfig):
@@ -68,10 +73,68 @@ def _dispatch(flat_e, num_experts: int, capacity: int):
     return row, keep
 
 
-def moe_ffn(p, x, cfg: ModelConfig, placement=None):
+def _slots(x, flat_e, num_experts: int, capacity: int):
+    """The expert buffer of ``x`` (B, S, D)'s top-k slots (``flat_e`` (B,
+    S·K) expert ids): (expert_in (E, B·C, D), row, keep) — each slot's
+    row in the (E·B·C) buffer and whether it was kept (:func:`_dispatch`).
+    A dropped slot's row is a spare one, discarded: every dropped slot
+    writes it (in an order of no account), nothing reads it, so the
+    backward pass gives the dropped slots a zero gradient, as the
+    reference's masked add does; each kept slot owns its row, so the
+    store is a permutation and its backward a gather."""
+    b, s, d = x.shape
+    k = flat_e.shape[1] // s
+    row, keep = _dispatch(flat_e, num_experts, capacity)
+    spare = num_experts * b * capacity
+    x_slots = x.repeat_interleave(k, dim=1)                 # (B, S·K, D)
+    buf = x.new_zeros(spare + 1, d)
+    buf[torch.where(keep, row, spare).reshape(-1)] = x_slots.reshape(-1, d)
+    return buf[:spare].view(num_experts, b * capacity, d), row, keep
+
+
+def _combine(expert_out, row, keep, gate):
+    """(B, S, D): each token's kept slots' expert outputs, gate-weighted
+    and summed; ``gate`` (B, S, K)."""
+    b, s, k = gate.shape
+    d = expert_out.shape[-1]
+    slot_out = expert_out.reshape(-1, d)[row.reshape(-1)].view(b, s * k, d)
+    slot_out = slot_out.masked_fill(~keep[..., None], 0)
+    slot_out = slot_out * gate.to(slot_out.dtype).reshape(b, s * k, 1)
+    return slot_out.view(b, s, k, d).sum(2)
+
+
+def _by_rows(x):
+    """The placements of a DTensor ``x`` that split its rows (dim 0) and
+    nothing else: ``Shard(0)`` on the mesh axes that split the rows,
+    when together they split them evenly; ``Replicate()`` elsewhere."""
+    mesh = x.device_mesh
+    axes = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    split = x.shape[0] % math.prod(mesh.size(i) for i in axes) == 0
+    return tuple(Shard(0) if split and i in axes else Replicate()
+                 for i in range(mesh.ndim))
+
+
+def _on_rows(rows, fn, in_dims, out_dims, *args):
+    """``fn(*args)`` on each rank's batch rows: each DTensor argument is
+    split like ``rows`` (:func:`_by_rows`) along its batch dim,
+    ``in_dims`` (dim 1 for the expert buffer, whose rows are (B·C)), and
+    ``fn`` runs on the local shards — the MoE's dispatch is per batch
+    row, and its sort and search have no DTensor rules.  ``out_dims``
+    gives each output's batch dim."""
+    def placed(dim):
+        return tuple(Shard(dim) if p == Shard(0) else p for p in rows)
+    return local_map(fn, out_placements=tuple(map(placed, out_dims)),
+                     in_placements=tuple(map(placed, in_dims)),
+                     redistribute_inputs=True)(*args)
+
+
+def moe_ffn(p, x, cfg: ModelConfig, placement=None, constraint=None):
     """x (B, S, D) → (out (B, S, D), aux) — aux carries the router
     histogram (SWARM collector input, from K5) and the load-balancing
-    loss."""
+    loss.  On DTensors (a sharded run) the dispatch and the combine run
+    on each rank's batch rows, and the expert products on the experts'
+    shards."""
+    cons = constraint or no_constraint
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
@@ -85,30 +148,31 @@ def moe_ffn(p, x, cfg: ModelConfig, placement=None):
 
     capacity = _capacity(m, s)
     flat_e = idx.reshape(b, s * k)
-    row, keep = _dispatch(flat_e, e, capacity)
-    # a dropped slot's row, discarded: every dropped slot writes it (in
-    # an order of no account), nothing reads it, so the backward pass
-    # gives the dropped slots a zero gradient, as the reference's
-    # masked add does; each kept slot owns its row, so the store is a
-    # permutation and its backward a gather
-    spare = e * b * capacity
-    x_slots = x.repeat_interleave(k, dim=1)                 # (B, S·K, D)
-    buf = x.new_zeros(spare + 1, d)
-    buf[torch.where(keep, row, spare).reshape(-1)] = x_slots.reshape(-1, d)
-    expert_in = buf[:spare].view(e, b * capacity, d)
+    if isinstance(x, DTensor):
+        rows = _by_rows(x)
+        expert_in, row, keep = _on_rows(
+            rows, functools.partial(_slots, num_experts=e, capacity=capacity),
+            (0, 0), (1, 0, 0), x, flat_e)
+    else:
+        expert_in, row, keep = _slots(x, flat_e, e, capacity)
+    expert_in = cons(expert_in, ("expert", "batch", None))
     g = torch.bmm(expert_in, p["w_gate"].to(dtype))
     u = torch.bmm(expert_in, p["w_up"].to(dtype))
     expert_out = torch.bmm(F.silu(g) * u, p["w_down"].to(dtype))
-    slot_out = expert_out.view(-1, d)[row.reshape(-1)].view(b, s * k, d)
-    slot_out = slot_out.masked_fill(~keep[..., None], 0)
-    slot_out = slot_out * gate.to(dtype).reshape(b, s * k, 1)
-    out = slot_out.view(b, s, k, d).sum(2)
-
+    expert_out = cons(expert_out, ("expert", "batch", None))
+    if isinstance(x, DTensor):
+        out = _on_rows(rows, _combine, (1, 0, 0, 0), (0,), expert_out, row,
+                       keep, gate)
+    else:
+        out = _combine(expert_out, row, keep, gate)
     if m.num_shared:
         sp = p["shared"]
         gs = x @ sp["w_gate"].to(dtype)
         us = x @ sp["w_up"].to(dtype)
         out = out + (F.silu(gs) * us) @ sp["w_down"].to(dtype)
+    # the reference's constraint on the routed output, placed after the
+    # shared experts' product so that its partial sum is completed too
+    out = cons(out, ("batch", None, "embed"))
 
     # SWARM collector (router histogram, K5) + Switch-style aux loss.  K5
     # carries no gradient and needs none: the reference's counts come

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import P, _proj, leaf, segmented_scan, sigmoid
+from .layers import (P, _proj, leaf, no_constraint, segmented_scan,
+                     sigmoid)
 
 
 def _dims(cfg: ModelConfig):
@@ -62,13 +63,15 @@ def _sqrt_in(n: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(n, dtype=dtype).sqrt())
 
 
-def mlstm_block(p, x, cfg: ModelConfig, state=None):
+def mlstm_block(p, x, cfg: ModelConfig, state=None, constraint=None):
     """x (B, S, D) → (out, state).  state = (C (B,H,dk,dv), n (B,H,dk),
     m (B,H)) fp32."""
+    cons = constraint or no_constraint
     _, h, dk, dv, _, _ = _dims(cfg)
     dtype = x.dtype
     b, s, _ = x.shape
     u, z = (x @ p["up_proj"].to(dtype)).chunk(2, -1)
+    u = cons(u, ("batch", None, "ff"))
     q = _proj(u, p["wq"], dtype)                         # (B, S, H, dk)
     k = _proj(u, p["wk"], dtype) / _sqrt_in(dk, dtype)
     v = _proj(u, p["wv"], dtype)
@@ -102,7 +105,8 @@ def mlstm_block(p, x, cfg: ModelConfig, state=None):
     state_out, ys = segmented_scan(step, (c0, n0, m0), xs)
     y = ys.transpose(0, 1).reshape(b, s, -1).to(dtype)   # (B, S, up)
     o = sigmoid(u @ p["w_o"].to(dtype))
-    return (y * o) @ p["down_proj"].to(dtype), state_out
+    return (cons((y * o) @ p["down_proj"].to(dtype), ("batch", None, "embed")),
+            state_out)
 
 
 def mlstm_state_spec(cfg: ModelConfig, batch: int):
@@ -130,9 +134,10 @@ def slstm_spec(cfg: ModelConfig):
     return gates
 
 
-def slstm_block(p, x, cfg: ModelConfig, state=None):
+def slstm_block(p, x, cfg: ModelConfig, state=None, constraint=None):
     """Scalar-memory LSTM with per-head recurrent mixing (block-diagonal
     R).  state = (c, n, h_prev, m) each (B, D) fp32."""
+    cons = constraint or no_constraint
     dtype = x.dtype
     b, s, d = x.shape
     nh = cfg.num_heads
@@ -149,8 +154,12 @@ def slstm_block(p, x, cfg: ModelConfig, state=None):
         c0, n0, h0, m0 = state
 
     def mix(h_prev, rg):
-        hh = h_prev.reshape(b, nh, dh)
-        return torch.einsum("bhk,hkj->bhj", hh, rg).reshape(b, d)
+        # a state split along D by more ranks than it has heads is
+        # gathered before the heads are cut out of it, and the mix comes
+        # back whole along D
+        hh = cons(h_prev, ("batch", None)).reshape(b, nh, dh)
+        mixed = torch.einsum("bhk,hkj->bhj", hh, rg)
+        return cons(mixed, ("batch", None, None)).reshape(b, d)
 
     def step(carry, inp):
         c, n, h_prev, m = carry
@@ -171,7 +180,8 @@ def slstm_block(p, x, cfg: ModelConfig, state=None):
     xs = {g: v.transpose(0, 1) for g, v in pre.items()}
     state_out, ys = segmented_scan(step, (c0, n0, h0, m0), xs)
     y = ys.transpose(0, 1).to(dtype)
-    return y @ p["out_proj"].to(dtype), state_out
+    out = cons(y @ p["out_proj"].to(dtype), ("batch", None, "embed"))
+    return out, state_out
 
 
 def slstm_state_spec(cfg: ModelConfig, batch: int):

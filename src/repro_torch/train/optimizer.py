@@ -8,8 +8,13 @@ correction, and weight decay decoupled from the gradient on every leaf,
 as the reference applies it.  ``adamw_update`` works in place under
 ``torch.no_grad()``: the parameters and the m and v buffers given are
 updated and returned (the reference's launcher donates them the same
-way).  ZeRO-1 sharding of m and v is not ported (ROADMAP Queue 1 item
-9e): ``opt_state_shardings`` raises.
+way).  With a mesh, :func:`opt_state_shardings` gives m and v the
+parameters' shardings and, ZeRO-1, additionally shards each one's
+largest replicated dimension over the "data" axis — the distributed-
+optimizer trick that cuts optimizer memory per device by the DP degree.
+The update is elementwise on DTensors: DTensor moves each gradient to
+its buffer's placement (a reduce-scatter where the gradient is still a
+partial sum) and the step back to the parameter's.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from dataclasses import dataclass
 import torch
 
 from .. import tree as T
+from ..distributed.sharding import NamedSharding
+from ..launch.mesh import mesh_shape
 
 
 @dataclass(frozen=True)
@@ -85,8 +92,40 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
         "grad_norm": gnorm, "lr": lr}
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-1 shardings: shard m/v's largest replicated dim over "data".
+# ---------------------------------------------------------------------------
+
 def opt_state_shardings(abstract_params, param_shardings_tree, mesh, *,
                         zero1: bool = True):
-    raise NotImplementedError(
-        "opt_state_shardings: ZeRO-1 sharding of the optimizer state is "
-        "not ported to PyTorch yet (ROADMAP Queue 1 item 9e)")
+    """{m, v, count} shardings for the optimizer state of parameters
+    ``abstract_params`` placed by ``param_shardings_tree``
+    (``distributed.sharding.param_shardings``).  The dimension is chosen
+    on the reference's stacked shape of a block leaf (a sharding's
+    ``stacked``); where that is the stacked periods axis, which a
+    per-layer tensor does not have, the leaf keeps its parameter's
+    sharding."""
+    shape = mesh_shape(mesh)
+    data_axis = "data" if "data" in shape else None
+    dsize = shape.get("data", 1)
+
+    def zero_shard(aval, ns: NamedSharding):
+        if not zero1 or data_axis is None:
+            return ns
+        lead = (ns.stacked,) if ns.stacked else ()
+        dims = lead + tuple(aval.shape)
+        spec = ([None] * len(lead) + list(ns.spec)
+                + [None] * (len(aval.shape) - len(ns.spec)))
+        # shard the largest still-replicated, divisible dim over "data"
+        cand = [(dims[i], i) for i, s in enumerate(spec)
+                if s is None and dims[i] % dsize == 0 and dims[i] >= dsize]
+        if not cand:
+            return ns
+        _, i = max(cand)
+        if i < len(lead):
+            return ns
+        spec[i] = data_axis
+        return NamedSharding(mesh, tuple(spec[len(lead):]), ns.stacked)
+
+    mv = T.map(zero_shard, abstract_params, param_shardings_tree)
+    return {"m": mv, "v": mv, "count": NamedSharding(mesh, ())}

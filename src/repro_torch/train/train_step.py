@@ -7,11 +7,20 @@ float32 masters (the twin of ``jax.value_and_grad``); the optimizer step
 runs under ``torch.no_grad()`` and updates the masters in place.  With
 microbatches the gradients are summed over ``microbatches`` slices of
 the batch and divided, with the loss, by their number; expert counts
-are summed, as the reference's ``lax.scan`` sums them.
+are summed, as the reference's ``lax.scan`` sums them.  Microbatch i
+holds rows i, i + m, i + 2m, … of the batch (m microbatches) where the
+reference takes m consecutive blocks: a data shard's rows then stay on
+it, and the sums are the same (each row's loss and dispatch are its
+own).  A sharded run passes ``constraint``
+(``distributed.sharding.make_constraint``) and DTensor trees.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.parallel import loss_parallel
 
 from .. import tree as T
 from ..models import model as MODEL
@@ -23,26 +32,30 @@ __all__ = ["REMAT_POLICIES", "make_loss_fn", "make_grad_fn",
            "make_train_step", "make_eval_step"]
 
 
-def make_loss_fn(cfg: ModelConfig, remat: str = "dots_no_batch"):
+def make_loss_fn(cfg: ModelConfig, remat: str = "dots_no_batch",
+                 constraint=None):
     """remat is applied to each block inside the model (the placement
     that actually bounds per-layer residual memory)."""
     def loss(params, batch, placement=None):
         return MODEL.loss_fn(params, cfg, batch, placement=placement,
-                             remat=remat)
+                             constraint=constraint, remat=remat)
 
     return loss
 
 
-def make_grad_fn(cfg: ModelConfig, remat: str = "dots_no_batch"):
+def make_grad_fn(cfg: ModelConfig, remat: str = "dots_no_batch",
+                 constraint=None):
     """Returns grad_fn(params, batch[, placement]) → ((loss, aux), grads),
     ``grads`` a tree of ``params``' structure: the twin of
     ``jax.value_and_grad(loss_fn, has_aux=True)``.  The parameters
     require grad only inside the call."""
-    loss_fn = make_loss_fn(cfg, remat)
+    loss_fn = make_loss_fn(cfg, remat, constraint)
 
     def grad_fn(params, batch, placement=None):
         leaves = T.leaves(params)
-        with torch.enable_grad():
+        sharded = isinstance(leaves[0], DTensor)
+        with torch.enable_grad(), (loss_parallel() if sharded
+                                   else contextlib.nullcontext()):
             for p in leaves:
                 p.requires_grad_(True)
             try:
@@ -60,12 +73,13 @@ def make_grad_fn(cfg: ModelConfig, remat: str = "dots_no_batch"):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
-                    remat: str = "dots_no_batch", microbatches: int = 1):
+                    remat: str = "dots_no_batch", microbatches: int = 1,
+                    constraint=None):
     """Returns train_step(params, opt_state, batch[, placement]) →
     (params, opt_state, metrics).  ``params`` and ``opt_state`` are
     updated in place, as the reference's launcher donates both trees to
     its jitted step: a caller that reads them again passes copies."""
-    grad_fn = make_grad_fn(cfg, remat)
+    grad_fn = make_grad_fn(cfg, remat, constraint)
 
     def step(params, opt_state, batch, placement=None):
         if microbatches == 1:
@@ -76,8 +90,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             loss = torch.zeros((), device=T.leaves(params)[0].device)
             counts = torch.zeros((n_exp,), device=loss.device)
             for i in range(microbatches):
-                mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                   *v.shape[1:])[i]
+                mb = {k: v.reshape(v.shape[0] // microbatches, microbatches,
+                                   *v.shape[1:])[:, i]
                       for k, v in batch.items()}
                 (l_i, aux_i), g = grad_fn(params, mb, placement)
                 grads = g if grads is None else T.map(torch.add, grads, g)

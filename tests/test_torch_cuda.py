@@ -1108,3 +1108,131 @@ def test_stream_checkpoint_resumes_on_the_card(cuda_device, window):
     a, b = cont.metrics.asarrays(), fresh.metrics.asarrays()
     for k in a:
         assert np.array_equal(a[k][20:], b[k]), k
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 as torch.library ops; serving on a (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,skv,d,q_offset", [
+    (2, 4, 2, 130, 130, 80, 0), (2, 4, 2, 1, 96, 16, 95),
+    (1, 16, 2, 300, 300, 128, 0)])
+def test_attention_op_equals_plain_version(cuda_device, dtype, b, h, hkv, s,
+                                           skv, d, q_offset):
+    """``torch.ops.repro_torch.flash_attention`` launches the kernels (one
+    call as the wrapper counts it) and agrees with the plain version at
+    the JAX package's tolerances."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(s + d, b, h, hkv, s, skv, d, dtype, cuda_device)
+    got, launched = _launched(FA, lambda: torch.ops.repro_torch.flash_attention(
+        q, k, v, True, None, q_offset))
+    torch.cuda.synchronize()
+    assert launched == _kernels_for(FA, q, k, q_offset=q_offset)
+    want = FA.attention_ref(q, k, v, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("t,k,e", [(256, 4, 60), (65536, 2, 16)])
+def test_histogram_op_equals_plain_version(cuda_device, t, k, e):
+    """``torch.ops.repro_torch.moe_histogram``: one launch, (2, E) — the
+    counts exact, the load at rtol 1e-5."""
+    from repro_torch.kernels import moe_histogram as MH
+    idx, gates = _assignments(t + e, t, k, e, cuda_device)
+    before = MH.ops.launches
+    got = torch.ops.repro_torch.moe_histogram(idx, gates, e)
+    torch.cuda.synchronize()
+    assert MH.ops.launches == before + 1 and got.shape == (2, e)
+    counts, load = MH.moe_histogram_ref(idx, gates, e)
+    assert torch.equal(got[0], counts)
+    torch.testing.assert_close(got[1], load, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_op_fake_output_is_the_kernels(cuda_device, dtype):
+    """Under FakeTensorMode the op gives the kernel output's shape, type
+    and strides (q's: a (B, S, H, D) projection seen as (B, H, S, D))
+    and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _qkv(3, 2, 8, 2, 40, 40, 128, dtype, cuda_device)
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    real = torch.ops.repro_torch.flash_attention(q, k, v, True, None, 0)
+    torch.cuda.synchronize()
+    before = FA.ops.launches
+    with FakeTensorMode() as mode:
+        fq, fk, fv = (mode.from_tensor(t) for t in (q, k, v))
+        fake = torch.ops.repro_torch.flash_attention(fq, fk, fv, True, None,
+                                                     0)
+    assert FA.ops.launches == before
+    assert (fake.shape, fake.dtype, fake.stride(), fake.device) == (
+        real.shape, real.dtype, real.stride(), real.device)
+
+
+def test_serving_on_a_one_card_mesh_equals_the_unsharded_path(cuda_device):
+    """qwen2-moe-a2.7b at full width, two layers, B = 2, on a (1, 1)
+    ("data", "model") mesh of a one-rank NCCL group: the weights placed
+    by ``param_shardings`` (the same storage, ``DTensor.from_local``),
+    the cache by ``cache_shardings``, ``make_constraint`` on — prefill
+    and two decode steps give the unsharded path's logits (the same
+    kernels on the same shards: bit for bit) and launch K5 and K6 as
+    often."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_histogram as MH
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models import prefill
+    from repro_torch.serve.engine import cache_shardings
+    if dist.is_initialized():
+        pytest.skip("a process group is already running in this process")
+    cfg = dataclasses.replace(configs.get_config("qwen2_moe_a2_7b"),
+                              num_layers=2)
+    params = init_params(cfg, 0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 66), dtype=torch.int32,
+                         device=cuda_device)
+
+    def run(params, cache, constraint, place):
+        logits, cache, _ = prefill(params, cfg, token_ids=place(toks[:, :64]),
+                                   max_seq=66, cache=cache,
+                                   constraint=constraint)
+        outs = [logits]
+        for t in (64, 65):
+            logits, cache, _ = decode_step(params, cfg, cache,
+                                           place(toks[:, t:t + 1]),
+                                           constraint=constraint)
+            outs.append(logits)
+        return [SH.whole(o) for o in outs]
+
+    before = (_calls(FA), MH.ops.launches)
+    plain = run(params, None, None, lambda t: t)
+    plain_launches = (_calls(FA) - before[0], MH.ops.launches - before[1])
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        placed = SH.shard_params(params, SH.param_shardings(cfg, mesh))
+        cache = SH.shard_params(init_cache(cfg, 2, 66, device=cuda_device),
+                                cache_shardings(cfg, mesh, 2, 66))
+        before = (_calls(FA), MH.ops.launches)
+        with implicit_replication():
+            sharded = run(placed, cache, SH.make_constraint(mesh),
+                          lambda t: SH.shard_tensor(
+                              t, SH.batch_sharding(mesh, 2)))
+        torch.cuda.synchronize()
+        assert (_calls(FA) - before[0],
+                MH.ops.launches - before[1]) == plain_launches
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(sharded, plain):
+        assert torch.equal(a, b)

@@ -72,6 +72,8 @@ REWRITTEN = [
     "train/__init__.py", "train/optimizer.py", "train/train_step.py",
     "launch/train.py",
     "launch/mesh.py", "streaming/sharded.py",
+    "distributed/sharding.py", "launch/specs.py", "launch/roofline.py",
+    "launch/dryrun.py",
 ]
 
 

@@ -391,16 +391,47 @@ def test_uncommitted_checkpoints_ignored():
         assert CKPT.latest_step(d) == 5
 
 
+SHARDED_CKPT = r"""
+import sys, tempfile, torch, torch.distributed as dist
+from repro_torch import checkpoint as CKPT, configs, tree as T
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import abstract_params, init_params
+from repro_torch.train import (abstract_opt_state, init_opt_state,
+                               opt_state_shardings)
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+cfg = configs.get_smoke_config("internlm2_1_8b")
+params = init_params(cfg, 0, device="cpu", dtype=torch.float32)
+opt = init_opt_state(params)
+p_sh = SH.param_shardings(cfg, mesh)
+o_sh = opt_state_shardings(params, p_sh, mesh)
+with tempfile.TemporaryDirectory() as d:
+    CKPT.save(d, 1, params=SH.shard_params(params, p_sh),
+              opt_state=SH.shard_params(opt, o_sh), cfg=cfg, mesh=mesh)
+    aps = abstract_params(cfg)
+    got, got_opt, manifest = CKPT.restore(
+        d, 1, abstract_params=aps, abstract_opt=abstract_opt_state(aps),
+        cfg=cfg, device="cpu", param_shardings=p_sh, opt_shardings=o_sh)
+assert manifest["mesh"] == [["data", 1], ["model", 1]], manifest["mesh"]
+for (path, a), b, sh in zip(T.items(got), T.leaves(params), T.leaves(p_sh)):
+    assert tuple(a.placements) == sh.placements, path
+    assert torch.equal(a.full_tensor(), b), path
+assert all(torch.equal(a.full_tensor(), b) for a, b in
+           zip(T.leaves(got_opt["m"]), T.leaves(opt["m"])))
+print("OK")
+"""
+
+
 def test_sharded_checkpoints_are_not_ported():
-    cfg = PC.get_smoke_config("internlm2_1_8b")
-    params = init_params(cfg, 0, device="cpu", dtype=torch.float32)
-    with tempfile.TemporaryDirectory() as d:
-        with pytest.raises(NotImplementedError, match="item 9e"):
-            CKPT.save(d, 1, params=params, cfg=cfg, mesh=object())
-        CKPT.save(d, 1, params=params, cfg=cfg)
-        with pytest.raises(NotImplementedError, match="item 9e"):
-            CKPT.restore(d, 1, abstract_params=abstract_params(cfg),
-                         cfg=cfg, device="cpu", param_shardings={})
+    """(The name is the item-9e refusal pin's; meshes are now ported.)
+    ``save(mesh=…)`` writes the mesh into the manifest, DTensor leaves
+    whole; ``restore(param_shardings=…, opt_shardings=…)`` returns each
+    leaf as a DTensor placed by its sharding (a (1, 1) mesh of a
+    one-rank gloo group, in a child: a process has one default group)."""
+    res = _run([sys.executable, "-c", SHARDED_CKPT], timeout=300)
+    assert res.returncode == 0 and "OK" in res.stdout, (
+        res.stdout[-2000:] + res.stderr[-2000:])
 
 
 # ---------------------------------------------------------------------------
@@ -509,13 +540,31 @@ def test_train_launcher_smoke_and_resume():
 
 
 def test_train_launcher_refuses_a_mesh_and_needs_a_card():
+    """(The name is the item-9e refusal pin's.)  ``--mesh-shape 2x4``
+    without eight ranks is refused, naming WORLD_SIZE;
+    ``--mesh-shape 1x1`` trains in one process, its losses those of the
+    run without a mesh; no card and no ``--device cpu`` fails."""
     base = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-            "--steps", "1"]
-    res = _run(base + ["--mesh-shape", "2x4", "--device", "cpu"])
+            "--batch", "4", "--seq", "32"]
+    env = {k: v for k, v in ENV.items() if k != "WORLD_SIZE"}
+    res = subprocess.run(base + ["--steps", "1", "--mesh-shape", "2x4",
+                                 "--device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=420,
+                         cwd=ROOT)
     assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr and "item 9e" in res.stderr
+    assert "WORLD_SIZE is 1" in res.stderr and "8 ranks" in res.stderr
+    runs = [_run(base + ["--steps", "3", "--device", "cpu"] + mesh)
+            for mesh in ([], ["--mesh-shape", "1x1"])]
+    for res in runs:
+        assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "mesh=1x1" in runs[1].stdout
+
+    def losses(out):
+        return [line.split("loss=")[1].split()[0] for line in
+                out.splitlines() if "loss=" in line]
+    assert losses(runs[0].stdout) == losses(runs[1].stdout)
     if not torch.cuda.is_available():
-        res = _run(base)
+        res = _run(base + ["--steps", "1"])
         assert res.returncode != 0 and "no CUDA card" in res.stderr
 
 
