@@ -54,7 +54,14 @@ paths at realistic sizes:
   xlstm-1.3b cut to one period, the card against the CPU in float32;
   phase ``serve_ssm`` xlstm-1.3b at full width and depth (48 layers of
   sLSTM and mLSTM scans, no kernel), 64 sessions, prompt 512, 16
-  decode calls, with the same profile split;
+  decode calls, with the same profile split; both serving phases print
+  their prefill seconds and decode ms beside PR 20's run Z, whose scans
+  were loops.  Before them, phase ``scan_ops`` holds each scan op
+  (``models/scan_ops.py``) against the loop it replaced
+  (``layers.segmented_scan`` over the same step) at the served shapes —
+  jamba's Mamba layer at B 50 × 1024, xlstm's mLSTM and sLSTM at
+  B 10 × 512 — bit for bit, and the sLSTM op's gradient against the
+  loop's, with both times;
 - the training path (phase ``train``): ``repro_torch.launch.train``'s
   ``Trainer`` on internlm2-1.8b at full width and depth (24 layers,
   float32 masters and AdamW state, bf16 compute, batch 4 × 2048, remat
@@ -78,10 +85,20 @@ paths at realistic sizes:
   repro_torch.launch.dryrun`` in a child process a cell on the 16×16
   production mesh (a fake process group of 256 ranks, fake shards, no
   card used) for internlm2-1.8b × train_4k, qwen2-moe-a2.7b ×
-  decode_32k, jamba-v0.1-52b × long_500k and hubert-xlarge ×
-  prefill_32k: status ok, per-device parameter bytes equal to the
-  sharding rules' shard sizes, 0 < useful fraction ≤ 1.5.
+  decode_32k, jamba-v0.1-52b × long_500k and × prefill_32k,
+  hubert-xlarge × prefill_32k and xlstm-1.3b × train_4k: status ok,
+  per-device parameter bytes equal to the sharding rules' shard sizes,
+  0 < useful fraction ≤ 1.5; jamba × long_500k's traced FLOPs and
+  K5/K6 calls those of PR 20 and its collective bytes by kind no more;
+- swarmlint (phase ``analysis``): ``python -m repro_torch.analysis
+  src/repro_torch`` on the card's host, the lint rules and the 19
+  kernel signature checks (every entry traced on fake CUDA tensors
+  through its op's fake), no violation and no mismatch.
 
+Phase ``k1`` also holds ``stats_update.close_round`` (the whole
+(8, P, G1) bank, one K1 launch) and ``close_round_xla`` bit for bit to
+``close_round_ref`` at the main path's (P, G1).  K1–K4 are reached
+through their ``torch.library`` ops, as K5 and K6 are.
 K5 is also held bit for bit to its written-out float32 sum order
 (``kernels/moe_histogram/order.py``) and timed beside an empty kernel,
 the floor under a launch; ``serve_profile`` counts one K5 kernel per MoE
@@ -226,12 +243,40 @@ K6_CASES = (
 
 # phase dryrun: the cells `python -m repro_torch.launch.dryrun` traces
 # on the 16×16 production mesh (a fake process group of 256 ranks, one
-# child process a cell), each within DRYRUN_TIMEOUT seconds
+# child process a cell), each within DRYRUN_TIMEOUT seconds; the last
+# two trace their 32 768- and 4096-step scans as one op call a layer
 DRYRUN_CELLS = (("internlm2_1_8b", "train_4k"),
                 ("qwen2_moe_a2_7b", "decode_32k"),
                 ("jamba_v0_1_52b", "long_500k"),
-                ("hubert_xlarge", "prefill_32k"))
+                ("hubert_xlarge", "prefill_32k"),
+                ("jamba_v0_1_52b", "prefill_32k"),
+                ("xlstm_1_3b", "train_4k"))
 DRYRUN_MESH, DRYRUN_TIMEOUT = {"data": 16, "model": 16}, 300
+# jamba × long_500k's record on that mesh with its scans as loops (PR 20,
+# PERF.md §5): the traced FLOPs and K5/K6 calls stay, collective bytes by
+# kind may not grow
+LONG_500K_PR20 = {"traced_flops_per_device": 8.0232251392e10,
+                  "collectives": {"all-gather": 17213326336,
+                                  "reduce-scatter": 917504,
+                                  "all-reduce": 477824},
+                  "kernel_calls": {"flash_attention": 4,
+                                   "moe_histogram": 16}}
+# phase scan_ops: each scan op against the loop (``layers.segmented_scan``
+# over the same step) at the served shapes — jamba's Mamba layer at phase
+# serve_hybrid's prefill (HYBRID_BATCH × LM_PROMPT, full d_inner and
+# d_state), xlstm-1.3b's mLSTM and sLSTM at phase serve_ssm's (its
+# replica 0 batch of SCAN_SSM_BATCH × SSM_PROMPT); the gradient of the
+# sLSTM op against the loop's at that shape, float32, each input's within
+# SCAN_GRAD_RTOL of its largest magnitude (+ SCAN_GRAD_ATOL): the
+# recurrent matrices' gradients sum 2 × SSM_PROMPT steps in another order
+SCAN_SSM_BATCH = 10
+SCAN_GRAD_RTOL, SCAN_GRAD_ATOL = 1e-5, 1e-6
+# phases serve_hybrid and serve_ssm with the scans as loops, PR 20's run Z
+# on this card type (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §5)
+PR20_RUN_Z = {"serve_hybrid": {"prefill_s": 2.287172451,
+                               "decode_ms_per_call": 21.24247083870968},
+              "serve_ssm": {"prefill_s": 10.80338142,
+                            "decode_ms_per_call": 45.0096033125}}
 
 # the TPU kernel each CUDA kernel replaces
 REPLACES = {
@@ -1739,6 +1784,20 @@ def phase_dryrun(SH, configs, M) -> None:
             check(0 < rec["model"]["useful_fraction"] <= 1.5,
                   f"dryrun {arch} × {shape}: useful fraction "
                   f"{rec['model']['useful_fraction']}")
+            if (arch, shape) == ("jamba_v0_1_52b", "long_500k"):
+                was = LONG_500K_PR20
+                emit({"phase": "dryrun", "arch": arch, "shape": shape,
+                      "pr20": was})
+                check(all(rl["collectives"].get(kind, 0) <= n
+                          for kind, n in was["collectives"].items())
+                      and set(rl["collectives"]) <= set(was["collectives"])
+                      and rec["kernel_calls"] == was["kernel_calls"]
+                      and rl["traced_flops_per_device"]
+                      == was["traced_flops_per_device"],
+                      f"dryrun {arch} × {shape}: {rl['collectives']}, "
+                      f"{rec['kernel_calls']}, "
+                      f"{rl['traced_flops_per_device']} against PR 20's "
+                      f"{was}")
 
 
 def _breakdown(prof, wall: float, calls: int) -> dict:
@@ -2031,8 +2090,8 @@ def _kinds(M, cfg) -> dict:
 
 @contextlib.contextmanager
 def _ranges(mods):
-    """Mark each call of the scan (``segmented_scan`` as the mixer
-    modules call it), of attention and of the MoE feed-forward with a
+    """Mark each call of a scan (the scan ops' wrappers as the mixer
+    modules call them), of attention and of the MoE feed-forward with a
     ``torch.profiler`` range of that name, for :func:`_split`."""
     from torch.profiler import record_function
     saved = []
@@ -2280,7 +2339,8 @@ def phase_serve_hybrid(torch, kern, LS, L, MOE, M, MO, mods, configs,
                                  - by_kernel["flash_attention"]["flash_merge"])
            / calls,
            "ep_moves": out["ep_moves"], "ep_imbalance": out["ep_imbalance"],
-           "kernels_at_path_inputs": at_path, "log": logs}
+           "kernels_at_path_inputs": at_path,
+           "pr20_run_z": PR20_RUN_Z["serve_hybrid"], "log": logs}
     _free_card(torch)
     res["profile"] = _profile_calls(torch, M, mods, cfg, HYBRID_BATCH,
                                     LM_PROMPT, LM_PROMPT + LM_STEPS, device)
@@ -2321,7 +2381,7 @@ def phase_serve_ssm(torch, kern, LS, M, mods, configs, device) -> dict:
     res = {"phase": "serve_ssm", "arch": SSM_ARCH, "cut": None,
            "params": cfg.param_count(), "layers_by_kind": kinds,
            **_serve_numbers(out, peak, SSM_PROMPT), "launches": launches,
-           "log": logs}
+           "pr20_run_z": PR20_RUN_Z["serve_ssm"], "log": logs}
     _free_card(torch)
     res["profile"] = _profile_calls(torch, M, mods, cfg, out["batch"],
                                     SSM_PROMPT,
@@ -2948,6 +3008,192 @@ def phase_train_moe(torch, kern, TR, M, MH, MOE, configs, device) -> dict:
     return out
 
 
+def _scan_inputs(torch, cfg_h, cfg_s, device) -> dict:
+    """Each scan op's inputs at phase scan_ops's shapes, from a seed:
+    sequences in bfloat16 (the served compute type), parameters and
+    states float32, the stabilisers at the mixers' −1e30 start."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(5)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+
+    b, s = HYBRID_BATCH, LM_PROMPT
+    c, n = cfg_h.mamba.expand * cfg_h.d_model, cfg_h.mamba.d_state
+    mamba = (F.softplus(randn(b, s, c) - 2.0).to(bf), randn(b, s, n, dtype=bf),
+             randn(b, s, n, dtype=bf), randn(b, s, c, dtype=bf),
+             -torch.exp(randn(c, n, scale=0.5)), zeros(b, c, n))
+    b, s, h, d = SCAN_SSM_BATCH, SSM_PROMPT, cfg_s.num_heads, cfg_s.d_model
+    up = int(d * cfg_s.xlstm.proj_factor)
+    dk, dv = int(up * cfg_s.xlstm.qk_dim_factor) // h, up // h
+    mlstm = (randn(b, s, h, dk, dtype=bf),
+             randn(b, s, h, dk, scale=dk ** -0.5, dtype=bf),
+             randn(b, s, h, dv, dtype=bf), randn(b, s, h, dtype=bf),
+             randn(b, s, h, scale=2.0, dtype=bf), zeros(b, h, dk, dv),
+             zeros(b, h, dk), torch.full((b, h), -1e30, device=device))
+    dh = d // h
+    slstm = (*(randn(b, s, d, dtype=bf) for _ in range(4)),
+             *(randn(h, dh, dh, scale=dh ** -0.5) for _ in range(4)),
+             zeros(b, d), zeros(b, d), zeros(b, d),
+             torch.full((b, d), -1e30, device=device))
+    return {"mamba_scan": mamba, "mlstm_scan": mlstm, "slstm_scan": slstm}
+
+
+def _scan_loop(L, SO, name, args):
+    """The loop the op replaces: ``layers.segmented_scan`` over the op's
+    step function → (ys batch-major, last carry)."""
+    spec = SO.OPS[name]
+    seqs, params, carry = spec.split(args)
+    step = spec.step(seqs, params)
+    carry, ys = L.segmented_scan(step, tuple(carry),
+                                 tuple(t.transpose(0, 1) for t in seqs))
+    return ys.transpose(0, 1), carry
+
+
+def phase_scan_ops(torch, L, SO, configs, device) -> dict:
+    """The three scan ops (``models/scan_ops.py``) on the card at the
+    served shapes (jamba's Mamba layer at B = HYBRID_BATCH, S =
+    LM_PROMPT, full d_inner and d_state; xlstm-1.3b's mLSTM and sLSTM at
+    B = SCAN_SSM_BATCH, S = SSM_PROMPT), each against the loop it
+    replaced, ``layers.segmented_scan`` over the same step: outputs and
+    last state bit for bit, the op's and the loop's times.  Then the
+    sLSTM op's gradients under autograd (float32 inputs, two segments
+    recomputed from the boundary carries) against the loop's
+    (``torch.utils.checkpoint`` per segment), within SCAN_GRAD_RTOL of
+    each gradient's largest magnitude, and both times.  The ops are loops of torch ops, not kernels: no launch
+    is counted."""
+    cfg_h = configs.get_config(HYBRID_ARCH)
+    cfg_s = configs.get_config(SSM_ARCH)
+    res = {"phase": "scan_ops", "ops": {}}
+    inputs = _scan_inputs(torch, cfg_h, cfg_s, device)
+    with tf32(torch, False), torch.no_grad():
+        for name, args in inputs.items():
+            op = getattr(torch.ops.repro_torch, name)
+            out = op(*args)
+            nc = len(SO.OPS[name].split(args)[2])
+            ys, carry = _scan_loop(L, SO, name, args)
+            torch.cuda.synchronize()
+            same = torch.equal(out[0], ys) and all(
+                torch.equal(a, b) for a, b in zip(out[1:1 + nc], carry))
+            check(same, f"scan_ops: {name} differs from the loop")
+            check(all(bool(t.isfinite().all()) for t in out[:1 + nc]),
+                  f"scan_ops: {name} gave a value that is not finite")
+            res["ops"][name] = {
+                "inputs": [list(t.shape) for t in args],
+                "ys": list(out[0].shape), "ys_dtype": str(out[0].dtype),
+                "bounds": list(out[1 + nc].shape), "bit_for_bit": same,
+                "op_ms": time_call_ms(torch, lambda: op(*args)),
+                "loop_ms": time_call_ms(
+                    torch, lambda: _scan_loop(L, SO, name, args))}
+            del out, ys, carry
+    args = [t.float() for t in inputs.pop("slstm_scan")]
+    del inputs
+    _free_card(torch)
+    gen = torch.Generator(device=device).manual_seed(6)
+    cot = torch.randn(args[0].shape, generator=gen, device=device)
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_() for t in args]
+        ys = fn(leaves)
+        return torch.autograd.grad((ys * cot).sum(), leaves)
+
+    def op_ys(leaves):
+        return torch.ops.repro_torch.slstm_scan(*leaves)[0]
+
+    def loop_ys(leaves):
+        return _scan_loop(L, SO, "slstm_scan", leaves)[0]
+
+    with tf32(torch, False):
+        got, want = grads(op_ys), grads(loop_ys)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k, (g, w) in enumerate(zip(got, want)):
+            err = float((g - w).abs().max())
+            check(err <= SCAN_GRAD_RTOL * float(w.abs().max())
+                  + SCAN_GRAD_ATOL,
+                  f"scan_ops: slstm_scan's gradient of input {k} differs "
+                  f"from the loop's by {err}")
+            worst = max(worst, err)
+        res["slstm_grad"] = {
+            "inputs": [list(t.shape) for t in args], "dtype": "float32",
+            "max_abs_err": worst, "rtol": SCAN_GRAD_RTOL,
+            "atol": SCAN_GRAD_ATOL,
+            "op_ms": time_call_ms(torch, lambda: grads(op_ys)),
+            "loop_ms": time_call_ms(torch, lambda: grads(loop_ys))}
+    emit(res)
+    del got, want, args, cot
+    _free_card(torch)
+    return res
+
+
+def phase_k1_bank(torch, SU, bank6, decay) -> dict:
+    """``stats_update.close_round`` on the whole (8, P, G1) bank at the
+    main path's (P, G1): the six input channels of its last round close
+    and R, preSpanQ' random; one K1 launch, bit for bit
+    ``close_round_ref``; the JAX package's portable fold's twin
+    (``close_round_xla``, the blocked cumsum in torch ops) too."""
+    ch = [None] * SU.ops.NUM_CH
+    for c, plane in zip(SU.IN_CH, bank6.unbind(0)):
+        ch[c] = plane
+    gen = torch.Generator(device=bank6.device).manual_seed(12)
+    for c in range(SU.ops.NUM_CH):
+        if ch[c] is None:
+            ch[c] = torch.rand(bank6.shape[1:], generator=gen,
+                               device=bank6.device)
+    bank = torch.stack(ch)
+    before = SU.ops.launches
+    got = SU.close_round(bank, decay)
+    launched = SU.ops.launches - before
+    want = SU.close_round_ref(bank, decay)
+    twin = SU.close_round_xla(bank, decay)
+    torch.cuda.synchronize()
+    check(launched == 1, f"k1: close_round launched K1 {launched} times")
+    check(torch.equal(got, want), "k1: close_round differs from "
+          "close_round_ref")
+    check(torch.equal(twin, want), "k1: close_round_xla differs from "
+          "close_round_ref")
+    res = {"phase": "k1", "entry": "close_round", "bank": list(bank.shape),
+           "decay": decay, "launches": launched, "bit_for_bit": True,
+           "max_abs_err": float((got - want).abs().max()),
+           "ms": time_call_ms(torch, lambda: SU.close_round(bank, decay)),
+           "plain_ms": time_call_ms(
+               torch, lambda: SU.close_round_ref(bank, decay)),
+           "close_round_xla_ms": time_call_ms(
+               torch, lambda: SU.close_round_xla(bank, decay))}
+    emit(res)
+    return res
+
+
+def phase_analysis() -> dict:
+    """``python -m repro_torch.analysis src/repro_torch`` on the card's
+    host (a CUDA build of torch): the SWM lint rules over the port, then
+    the 19 kernel signature checks, every entry traced on fake CUDA
+    tensors through its op's fake implementation.  Fails on a violation
+    or a mismatch."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis",
+         os.path.join("src", "repro_torch")],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in res.stderr.splitlines() if "[swarmlint]" in ln]
+    emit({"phase": "analysis", "exit": res.returncode, "seconds": seconds,
+          "summary": lines, "findings": res.stdout.splitlines()[-20:]})
+    check(res.returncode == 0
+          and any(" 0 violation(s)" in ln for ln in lines)
+          and any("kernel signatures: 19 checked, 0 mismatch(es)" in ln
+                  for ln in lines),
+          f"analysis: exit {res.returncode}\n{res.stdout[-2000:]}"
+          f"{res.stderr[-2000:]}")
+    return {"seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2980,6 +3226,7 @@ def main() -> int:
     from repro_torch.models import mamba as MB
     from repro_torch.models import model as M
     from repro_torch.models import moe as MOE
+    from repro_torch.models import scan_ops as SO
     from repro_torch.models import xlstm as XL
     from repro_torch.distributed import sharding as SH
     kern = {"stats_update": SU, "spatial_match": SM, "keyword_match": KM,
@@ -3051,6 +3298,7 @@ def main() -> int:
     bank6, decay = last["bank6"], last["decay"]
     worst = max(worst, k1_error(torch, SU, bank6, decay))
     times = k1_times(torch, SU, bank6, decay)
+    phase_k1_bank(torch, SU, bank6, decay)
     k2 = k2_row(torch, SM, match["pts"], match["rects"])
     k3 = k3_row(torch, SM, KM, pubsub["pts"], pubsub["pm"], pubsub["rects"],
                 pubsub["sm"])
@@ -3073,9 +3321,11 @@ def main() -> int:
     emit({"serve_kernels": lm})
     del serve
     torch.cuda.empty_cache()
+    phase_scan_ops(torch, L, SO, configs, device)
     # the recurrent families; each scan, attention and MoE call marked
     # for the profile split
-    mods = ((MB, "segmented_scan", "scan"), (XL, "segmented_scan", "scan"),
+    mods = ((MB, "mamba_scan", "scan"), (XL, "mlstm_scan", "scan"),
+            (XL, "slstm_scan", "scan"),
             (L, "attention", "attention"), (MOE, "moe_ffn", "moe"))
     hybrid = phase_serve_hybrid(torch, kern, LS, L, MOE, M, MO, mods,
                                 configs, device)
@@ -3087,6 +3337,7 @@ def main() -> int:
     phase_train_check(torch, kern, FA, L, M, TR, configs, device)
     phase_train_moe(torch, kern, TR, M, MH, MOE, configs, device)
     phase_dryrun(SH, configs, M)
+    phase_analysis()
     emit({"library_ms": {
         "spatial_match": "null: no single PyTorch call computes the "
                          "inclusive containment counts of both sides",

@@ -5,13 +5,15 @@
 masks (N, T), rects (Q, 4) and subscription masks (Q, T), the masks
 exact 0/1 float32 bucket indicators (``bucket_masks`` /
 ``TermHasher.sub_masks``), in; (deliveries per point (N,), matches per
-subscription (Q,)) int32 out.  On a CUDA tensor it launches the
-hand-written kernels in ``keyword_match.cu`` (built with nvcc at first
-use: the masks packed into 32-bit words and the rects into
-order-preserving keys, then the match) or raises; on
-a CPU tensor it runs the plain PyTorch version in ``ref.py``.
-``launches`` counts the calls that launched the match kernel, so a run
-can show it went through the kernel.  The launch geometry is chosen
+subscription (Q,)) int32 out.  It reaches the kernels through the
+``torch.library`` op ``repro_torch::keyword_match`` (a plain ``Library``
+definition): its CUDA implementation launches the hand-written kernels
+in ``keyword_match.cu`` (built with nvcc at first use: the masks packed
+into 32-bit words and the rects into order-preserving keys, then the
+match) or raises, its CPU implementation is the plain PyTorch version
+in ``ref.py``, and its fake gives the outputs' shapes and type.
+``launches`` counts the calls that launched the match kernel, inside
+the CUDA implementation, so a run can show it went through the kernel.  The launch geometry is chosen
 here (:func:`geometry`): tuple tiles of THREADS·R tuples on the grid's
 x axis, groups of consecutive subscription chunks on its y axis.  The
 constants it sizes them with reach the kernel as nvcc defines
@@ -24,7 +26,7 @@ import os
 import torch
 
 from .. import _build
-from ..spatial_match.ops import aligned, check_inputs
+from ..spatial_match.ops import aligned, check_inputs, counts_fake
 from .ref import keyword_match_ref
 
 __all__ = ["keyword_match", "launch", "build", "bind", "geometry",
@@ -114,10 +116,26 @@ def keyword_match(points: torch.Tensor, pt_masks: torch.Tensor,
         if m.device != points.device:
             raise ValueError(f"masks on {m.device}, points on "
                              f"{points.device}")
-    if points.device.type == "cpu":
-        return keyword_match_ref(points, pt_masks, rects, sub_masks)
-    return launch(build(), tuples_per_thread(t), TARGET_BLOCKS, points,
-                  pt_masks, rects, sub_masks)
+    return tuple(torch.ops.repro_torch.keyword_match(points, pt_masks,
+                                                     rects, sub_masks))
+
+
+def _match_cuda(points, pt_masks, rects, sub_masks):
+    """The op on CUDA tensors: the packers and the match kernel."""
+    return launch(build(), tuples_per_thread(pt_masks.shape[-1]),
+                  TARGET_BLOCKS, points, pt_masks, rects, sub_masks)
+
+
+# K3 as the op ``repro_torch::keyword_match``
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("keyword_match(Tensor points, Tensor pt_masks, Tensor rects, "
+            "Tensor sub_masks) -> (Tensor, Tensor)")
+_LIB.impl("keyword_match", _match_cuda, "CUDA")
+_LIB.impl("keyword_match", keyword_match_ref, "CPU")
+torch.library.register_fake(
+    "repro_torch::keyword_match",
+    lambda points, pt_masks, rects, sub_masks: counts_fake(points, rects),
+    lib=_LIB)
 
 
 def launch(kernel, r: int, target: int, points, pt_masks, rects,

@@ -3,13 +3,16 @@
 :func:`knn_match` has the contract of the JAX package's
 ``kernels/knn_match/ops.py:knn_match``: points (N, 2) and foci (Q, 2)
 in, (Q, k) float32 ascending squared distances out, for any
-``1 <= k <= N``.  On a CUDA tensor it launches the hand-written kernel
-in ``knn_match.cu`` (built with nvcc at first use; ``k`` up to
+``1 <= k <= N``.  It reaches the kernels through the ``torch.library``
+op ``repro_torch::knn_match`` (a plain ``Library`` definition): its
+CUDA implementation launches the hand-written kernels in
+``knn_match.cu`` (built with nvcc at first use; ``k`` up to
 :data:`MAX_K`, its register lists' cap), over the foci in a spatial
-order (:func:`spatial_order`), or raises; on a CPU tensor it runs the
-plain PyTorch version in ``ref.py`` for any k.  ``launches``
-counts the kernel launches, so a run can show it went through the
-kernels, and ``launches_by_kernel`` splits them by kernel: a launch
+order (:func:`spatial_order`), or raises, its CPU implementation is the
+plain PyTorch version in ``ref.py`` for any k, and its fake gives the
+output's shape.  ``launches`` counts the kernel launches, inside the
+CUDA implementation, so a run can show it went through the kernels,
+and ``launches_by_kernel`` splits them by kernel: a launch
 whose points are split runs ``knn_match_kernel`` and then
 ``knn_merge_kernel``.  The constants the kernel is sized with are
 stated here and reach the ``.cu`` as nvcc defines (:data:`DEFINES`).
@@ -94,14 +97,30 @@ def knn_match(points: torch.Tensor, foci: torch.Tensor, k: int = 8):
         raise ValueError(f"k={k}: kNN needs k >= 1")
     if n < k:
         raise ValueError(f"k={k} nearest points asked of a batch of {n}")
-    if points.device.type == "cpu":
-        return knn_match_ref(points, foci, k)
-    if points.device.type != "cuda":
+    if points.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no knn_match kernel for {points.device}")
-    if k > MAX_K:
+    if points.device.type == "cuda" and k > MAX_K:
         raise ValueError(f"k={k}: the kNN kernel on the card keeps "
                          f"1 <= k <= {MAX_K}")
+    return torch.ops.repro_torch.knn_match(points, foci, k)
+
+
+def _knn_cuda(points, foci, k):
+    """The op on CUDA tensors: the match kernel and, where the points
+    are split, the merge."""
     return launch(build(), points, foci, k)
+
+
+def _knn_fake(points, foci, k):
+    return points.new_empty((foci.shape[0], k))
+
+
+# K4 as the op ``repro_torch::knn_match``
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("knn_match(Tensor points, Tensor foci, int k) -> Tensor")
+_LIB.impl("knn_match", _knn_cuda, "CUDA")
+_LIB.impl("knn_match", knn_match_ref, "CPU")
+torch.library.register_fake("repro_torch::knn_match", _knn_fake, lib=_LIB)
 
 
 @functools.lru_cache(maxsize=None)

@@ -123,8 +123,8 @@ def moe_histogram(idx: torch.Tensor, gates: torch.Tensor, *,
                          f"supports 1 … {MAX_EXPERTS} experts")
     if idx.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no moe_histogram kernel for {idx.device}")
-    out = histogram_op(idx, gates, num_experts)
-    return out[0], out[1]
+    counts, load = histogram_op(idx, gates, num_experts).unbind(0)
+    return counts, load
 
 
 def _histogram_cuda(idx, gates, num_experts):

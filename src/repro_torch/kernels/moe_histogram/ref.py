@@ -3,7 +3,10 @@
 Mirrors the JAX package's ``kernels/moe_histogram/ref.py``: over (T, K)
 expert assignments, per expert the number of assignments and the sum of
 their gates, both float32; ids outside [0, E) (the −1 padding) match
-nothing.  Counts come from ``bincount``, the load from ``index_add_``.
+nothing.  Counts and load come from ``index_add_`` (of ones, of the
+gates) into E + 1 slots, the last one taking the padding: static shapes,
+so the version also traces under ``FakeTensorMode``; the counts are
+exact (integers below 2**24).
 """
 import torch
 
@@ -14,7 +17,9 @@ def moe_histogram_ref(idx, gates, num_experts: int):
     gates = gates.reshape(-1).float()
     keep = (idx >= 0) & (idx < num_experts)
     slot = torch.where(keep, idx, torch.full_like(idx, num_experts))
-    counts = torch.bincount(slot, minlength=num_experts + 1)[:num_experts]
+    counts = torch.zeros(num_experts + 1, dtype=torch.float32,
+                         device=gates.device).index_add_(
+        0, slot, torch.ones_like(gates))
     load = torch.zeros(num_experts + 1, dtype=torch.float32,
                        device=gates.device).index_add_(0, slot, gates)
-    return counts.float(), load[:num_experts]
+    return counts[:num_experts], load[:num_experts]

@@ -3,10 +3,13 @@
 :func:`spatial_match` has the contract of the JAX package's
 ``kernels/spatial_match/ops.py:spatial_match``: points (N, 2) and rects
 (Q, 4) = (x0, y0, x1, y1) in, (per-point matches (N,), per-rect matches
-(Q,)) int32 out.  On a CUDA tensor it launches the hand-written kernel
-in ``spatial_match.cu`` (built with nvcc at first use) or raises; on a
-CPU tensor it runs the plain PyTorch version in ``ref.py``.
-``launches`` counts the kernel launches, so a run can show it went
+(Q,)) int32 out.  It reaches the kernel through the ``torch.library``
+op ``repro_torch::spatial_match`` (a plain ``Library`` definition): its
+CUDA implementation launches the hand-written kernel in
+``spatial_match.cu`` (built with nvcc at first use) or raises, its CPU
+implementation is the plain PyTorch version in ``ref.py``, and its fake
+gives the outputs' shapes and type.  ``launches`` counts the kernel
+launches, inside the CUDA implementation, so a run can show it went
 through the kernel.
 """
 import ctypes
@@ -68,10 +71,13 @@ def check_inputs(points: torch.Tensor, rects: torch.Tensor) -> None:
 
 def spatial_match(points: torch.Tensor, rects: torch.Tensor):
     """points (N, 2), rects (Q, 4) float32 → (int32 (N,), int32 (Q,))."""
-    global launches
     check_inputs(points, rects)
-    if points.device.type == "cpu":
-        return spatial_match_ref(points, rects)
+    return tuple(torch.ops.repro_torch.spatial_match(points, rects))
+
+
+def _match_cuda(points, rects):
+    """The op on CUDA tensors: one launch of the kernel."""
+    global launches
     n, q = points.shape[0], rects.shape[0]
     pcnt = torch.zeros(n, dtype=torch.int32, device=points.device)
     qcnt = torch.zeros(q, dtype=torch.int32, device=points.device)
@@ -86,3 +92,19 @@ def spatial_match(points: torch.Tensor, rects: torch.Tensor):
         raise RuntimeError(f"spatial_match launch failed: CUDA error {err}")
     launches += 1
     return pcnt, qcnt
+
+
+def counts_fake(points, rects):
+    """The fake of K2's op (and K3's, past its masks): (N,) and (Q,)
+    int32."""
+    return (points.new_empty((points.shape[0],), dtype=torch.int32),
+            points.new_empty((rects.shape[0],), dtype=torch.int32))
+
+
+# K2 as the op ``repro_torch::spatial_match``
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("spatial_match(Tensor points, Tensor rects) -> (Tensor, Tensor)")
+_LIB.impl("spatial_match", _match_cuda, "CUDA")
+_LIB.impl("spatial_match", spatial_match_ref, "CPU")
+torch.library.register_fake("repro_torch::spatial_match", counts_fake,
+                            lib=_LIB)

@@ -1,7 +1,8 @@
 """Model zoo on PyTorch: every family of the JAX package's ``models``
 (dense, moe, vlm, audio, the Mamba hybrid and the xLSTM ssm), with
 attention on kernel K6 and the MoE expert histogram on kernel K5; the
-recurrences are loops of torch ops (``layers.segmented_scan``)."""
+recurrences are ``torch.library`` ops whose implementation is a loop of
+torch ops (``scan_ops``)."""
 from .config import MambaConfig, ModelConfig, MoEConfig, XLSTMConfig
 from .convert import from_jax_layout, from_jax_params, to_jax_layout
 from .model import (abstract_cache, abstract_params, cache_spec,

@@ -11,8 +11,10 @@ The reference's XLA attention, ``_sdpa_direct`` and the query-chunked
 ``_sdpa_chunked``, has its twins here: they are not on the forward
 path, but K6's backward pass recomputes attention through them
 (:func:`sdpa_grad`), as the reference's gradient does.
-``segmented_scan`` runs the recurrent mixers' scans (``mamba.py``,
-``xlstm.py``) as a Python loop over the time axis.
+``segmented_scan`` is ``lax.scan`` with chunked rematerialization as a
+Python loop over the time axis; the recurrent mixers (``mamba.py``,
+``xlstm.py``) reach that loop through their scan ops (``scan_ops.py``),
+which are held to it bit for bit.
 """
 from __future__ import annotations
 

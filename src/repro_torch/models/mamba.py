@@ -1,10 +1,10 @@
 """Mamba (selective SSM) block — the SSM mixer of the jamba hybrid.
 
 The JAX package's ``models/mamba.py`` in PyTorch, op for op.  The
-selective scan over the sequence runs through ``layers.segmented_scan``
-(a Python loop over the time axis) with the (B, d_inner, d_state)
-float32 state as carry; no (S, d_inner, d_state) tensor is ever
-materialized.  The scan's inputs ride in the compute type and are
+selective scan over the sequence is the op ``repro_torch::mamba_scan``
+(``scan_ops.mamba_scan``: a loop over the time axis) with the
+(B, d_inner, d_state) float32 state as carry; no (S, d_inner, d_state)
+tensor is ever materialized.  The scan's inputs ride in the compute type and are
 upcast per step, as in the reference ("xs ride in bf16"): skipping that
 rounding drifts from it in bfloat16.  ``a = −exp(a_log)``,
 ``dt_proj_b`` and ``d_skip`` are used in float32; the causal conv is the
@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import P, leaf, no_constraint, segmented_scan, silu
+from .layers import P, leaf, no_constraint, silu
+from .scan_ops import mamba_scan
 
 
 def _dims(cfg: ModelConfig):
@@ -45,11 +46,15 @@ def mamba_spec(cfg: ModelConfig):
     }
 
 
-def _ssm_inputs(p, xz, cfg: ModelConfig):
+def _ssm_inputs(p, xz, cfg: ModelConfig, constraint=None):
     """Shared pre-scan computation.  xz (B, S, d_inner) post-conv/silu →
-    (dt, a, b_t, c_t), all float32."""
+    (dt, a, b_t, c_t), all float32.  A sharded run completes the x
+    projection's partial sum over d_inner here, where DTensor would
+    otherwise choose per product (one torch version asks for a sharded
+    operand as a partial one, which it cannot make)."""
+    cons = constraint or no_constraint
     m, d_inner, dt_rank = _dims(cfg)
-    proj = xz @ p["x_proj"].to(xz.dtype)
+    proj = cons(xz @ p["x_proj"].to(xz.dtype), ("batch", None, None))
     dt_in = proj[..., :dt_rank]
     b_t = proj[..., dt_rank:dt_rank + m.d_state].float()
     c_t = proj[..., dt_rank + m.d_state:].float()
@@ -86,22 +91,15 @@ def mamba_block(p, x, cfg: ModelConfig, state=None, constraint=None):
     conv_state = state[1] if state is not None else None
     xi, new_conv = _conv1d(p, xi, m.d_conv, conv_state)
     xi = silu(xi)
-    dt, a, b_t, c_t = _ssm_inputs(p, xi, cfg)
+    dt, a, b_t, c_t = _ssm_inputs(p, xi, cfg, cons)
 
     h0 = (state[0] if state is not None
           else torch.zeros((x.shape[0], d_inner, m.d_state),
                            dtype=torch.float32, device=x.device))
 
-    def step(h, inp):
-        dt_t, b_tt, c_tt, x_tt = (t.float() for t in inp)
-        da = torch.exp(dt_t[..., None] * a)              # (B, C, N)
-        h = da * h + (dt_t * x_tt)[..., None] * b_tt[:, None, :]
-        y = torch.einsum("bcn,bn->bc", h, c_tt)
-        return h, y.to(dtype)
-
-    xs = tuple(t.to(dtype).transpose(0, 1) for t in (dt, b_t, c_t, xi))
-    h_last, ys = segmented_scan(step, h0, xs)
-    y = ys.transpose(0, 1).float() + xi.float() * p["d_skip"].float()
+    ys, h_last = mamba_scan(*(t.to(dtype) for t in (dt, b_t, c_t, xi)), a,
+                            h0)
+    y = ys.float() + xi.float() * p["d_skip"].float()
     y = y.to(dtype) * silu(z)
     return (cons(y @ p["out_proj"].to(dtype), ("batch", None, "embed")),
             (h_last, new_conv))

@@ -2,8 +2,9 @@
 recurrent mixing), per arXiv:2405.04517.
 
 The JAX package's ``models/xlstm.py`` in PyTorch, op for op.  Both
-recurrences run through ``layers.segmented_scan`` (a Python loop over
-the time axis) with exp-gate max-stabilizers; their states are float32
+recurrences are ops, ``repro_torch::mlstm_scan`` and
+``repro_torch::slstm_scan`` (``scan_ops``: loops over the time axis),
+with exp-gate max-stabilizers; their states are float32
 and the stabiliser ``m`` starts at −1e30.  The gate pre-activations
 ride in the compute type and are upcast per step; the sLSTM's recurrent
 matrices ``r_{z,i,f,o}`` are used in float32.  The sigmoid is
@@ -16,11 +17,10 @@ Decode is the O(1) single-step update.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import (P, _proj, leaf, no_constraint, segmented_scan,
-                     sigmoid)
+from .layers import P, _proj, leaf, no_constraint, sigmoid
+from .scan_ops import mlstm_scan, slstm_scan
 
 
 def _dims(cfg: ModelConfig):
@@ -30,11 +30,6 @@ def _dims(cfg: ModelConfig):
     d_qk = int(up * x.qk_dim_factor)
     d_v = up
     return x, h, d_qk // h, d_v // h, d_qk, d_v
-
-
-def _log_sigmoid(x):
-    """``-softplus(-x)``, the reference's log sigmoid."""
-    return -F.softplus(-x)
 
 
 # ---------------------------------------------------------------------------
@@ -86,25 +81,13 @@ def mlstm_block(p, x, cfg: ModelConfig, state=None, constraint=None):
     else:
         c0, n0, m0 = state
 
-    def step(carry, inp):
-        c, n, m = carry
-        q_t, k_t, v_t, i_t, f_t = (t.float() for t in inp)
-        log_f = _log_sigmoid(f_t)
-        m_new = torch.maximum(log_f + m, i_t)
-        fg = torch.exp(log_f + m - m_new)
-        ig = torch.exp(i_t - m_new)
-        c = fg[..., None, None] * c + ig[..., None, None] * (
-            k_t[..., :, None] * v_t[..., None, :])
-        n = fg[..., None] * n + ig[..., None] * k_t
-        num = torch.einsum("bhkv,bhk->bhv", c, q_t)
-        den = torch.maximum(torch.einsum("bhk,bhk->bh", n, q_t).abs(),
-                            torch.exp(-m_new))
-        return (c, n, m_new), num / den[..., None]
-
-    xs = tuple(t.transpose(0, 1) for t in (q, k, v, i_pre, f_pre))
-    state_out, ys = segmented_scan(step, (c0, n0, m0), xs)
-    y = ys.transpose(0, 1).reshape(b, s, -1).to(dtype)   # (B, S, up)
-    o = sigmoid(u @ p["w_o"].to(dtype))
+    ys, state_out = mlstm_scan(q, k, v, i_pre, f_pre, c0, n0, m0)
+    # a sharded run places the scan's output and the output gate as the
+    # down projection expects them (DTensor would otherwise split them
+    # along the batch or the sequence on "model", which the product's
+    # flattened rows cannot carry)
+    y = cons(ys.reshape(b, s, -1), ("batch", None, "ff")).to(dtype)
+    o = sigmoid(cons(u @ p["w_o"].to(dtype), ("batch", None, "ff")))
     return (cons((y * o) @ p["down_proj"].to(dtype), ("batch", None, "embed")),
             state_out)
 
@@ -140,8 +123,6 @@ def slstm_block(p, x, cfg: ModelConfig, state=None, constraint=None):
     cons = constraint or no_constraint
     dtype = x.dtype
     b, s, d = x.shape
-    nh = cfg.num_heads
-    dh = d // nh
     pre = {g: x @ p[f"w_{g}"].to(dtype) + p[f"b_{g}"].to(dtype)
            for g in GATES}
     r = {g: p[f"r_{g}"].float() for g in GATES}
@@ -153,33 +134,11 @@ def slstm_block(p, x, cfg: ModelConfig, state=None, constraint=None):
     else:
         c0, n0, h0, m0 = state
 
-    def mix(h_prev, rg):
-        # a state split along D by more ranks than it has heads is
-        # gathered before the heads are cut out of it, and the mix comes
-        # back whole along D
-        hh = cons(h_prev, ("batch", None)).reshape(b, nh, dh)
-        mixed = torch.einsum("bhk,hkj->bhj", hh, rg)
-        return cons(mixed, ("batch", None, None)).reshape(b, d)
-
-    def step(carry, inp):
-        c, n, h_prev, m = carry
-        inp = {g: v.float() for g, v in inp.items()}
-        z_t = torch.tanh(inp["z"] + mix(h_prev, r["z"]))
-        i_t = inp["i"] + mix(h_prev, r["i"])
-        f_t = inp["f"] + mix(h_prev, r["f"])
-        o_t = sigmoid(inp["o"] + mix(h_prev, r["o"]))
-        log_f = _log_sigmoid(f_t)
-        m_new = torch.maximum(log_f + m, i_t)
-        fg = torch.exp(log_f + m - m_new)
-        ig = torch.exp(i_t - m_new)
-        c = fg * c + ig * z_t
-        n = fg * n + ig
-        h_new = o_t * c / torch.clamp_min(n, 1e-6)
-        return (c, n, h_new, m_new), h_new
-
-    xs = {g: v.transpose(0, 1) for g, v in pre.items()}
-    state_out, ys = segmented_scan(step, (c0, n0, h0, m0), xs)
-    y = ys.transpose(0, 1).to(dtype)
+    # the op splits along the batch, or along D on head boundaries where
+    # every mesh axis divides the heads
+    ys, state_out = slstm_scan(*(pre[g] for g in GATES),
+                               *(r[g] for g in GATES), c0, n0, h0, m0)
+    y = cons(ys, ("batch", None, "ff")).to(dtype)
     out = cons(y @ p["out_proj"].to(dtype), ("batch", None, "embed"))
     return out, state_out
 

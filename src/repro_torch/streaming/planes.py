@@ -377,8 +377,9 @@ class NumpyPlane(DataPlane):
                    & (points[:, None, 0] <= r[None, :, 2])
                    & (points[:, None, 1] >= r[None, :, 1])
                    & (points[:, None, 1] <= r[None, :, 3]))
-            # buckets the subscription needs that the tuple lacks
-            miss = inv @ sub_masks[lo:lo + chunk].T
+            # buckets the subscription needs that the tuple lacks (host
+            # NumPy, 0/1 operands, float32 accumulator: exact)
+            miss = inv @ sub_masks[lo:lo + chunk].T  # swarmlint: disable=SWM006
             hit &= miss < 0.5
             pcnt += hit.sum(1, dtype=np.int32)
             qcnt[lo:lo + chunk] = hit.sum(0, dtype=np.int32)

@@ -8,18 +8,20 @@ runs under ``torch.no_grad()`` and updates the masters in place.  With
 microbatches the gradients are summed over ``microbatches`` slices of
 the batch and divided, with the loss, by their number; expert counts
 are summed, as the reference's ``lax.scan`` sums them.  Microbatch i
-holds rows i, i + m, i + 2m, … of the batch (m microbatches) where the
-reference takes m consecutive blocks: a data shard's rows then stay on
-it, and the sums are the same (each row's loss and dispatch are its
-own).  A sharded run passes ``constraint``
-(``distributed.sharding.make_constraint``) and DTensor trees.
+is the reference's block i, rows [i·B/m, (i+1)·B/m) of the batch (m
+microbatches): the split matters, since an MoE's load-balancing loss is
+a product of two means over the microbatch's rows.  A sharded run
+passes ``constraint`` (``distributed.sharding.make_constraint``) and
+DTensor trees; a DTensor batch is gathered whole once a step and each
+block placed as the batch was (:func:`microbatches_of`), so that block i
+is split over the data ranks like the batch.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.parallel import loss_parallel
 
 from .. import tree as T
@@ -29,7 +31,26 @@ from ..models.model import REMAT_POLICIES
 from .optimizer import AdamWConfig, adamw_update
 
 __all__ = ["REMAT_POLICIES", "make_loss_fn", "make_grad_fn",
-           "make_train_step", "make_eval_step"]
+           "make_train_step", "make_eval_step", "microbatches_of"]
+
+
+def microbatches_of(batch: dict, m: int) -> list[dict]:
+    """The reference's split of ``batch`` into ``m`` microbatches:
+    block i holds rows [i·B/m, (i+1)·B/m) of every entry.  A DTensor
+    entry is gathered whole (its rows are a few int32 tokens a row) and
+    each block redistributed to the entry's placements, which splits it
+    over the data ranks as the batch was split."""
+    def blocks(v):
+        n = v.shape[0] // m
+        if not isinstance(v, DTensor):
+            return [v[i * n:(i + 1) * n] for i in range(m)]
+        mesh, placements = v.device_mesh, v.placements
+        full = v.redistribute(mesh, (Replicate(),) * mesh.ndim)
+        return [full[i * n:(i + 1) * n].redistribute(mesh, placements)
+                for i in range(m)]
+
+    split = {k: blocks(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(m)]
 
 
 def make_loss_fn(cfg: ModelConfig, remat: str = "dots_no_batch",
@@ -89,10 +110,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             grads = None
             loss = torch.zeros((), device=T.leaves(params)[0].device)
             counts = torch.zeros((n_exp,), device=loss.device)
-            for i in range(microbatches):
-                mb = {k: v.reshape(v.shape[0] // microbatches, microbatches,
-                                   *v.shape[1:])[:, i]
-                      for k, v in batch.items()}
+            for mb in microbatches_of(batch, microbatches):
                 (l_i, aux_i), g = grad_fn(params, mb, placement)
                 grads = g if grads is None else T.map(torch.add, grads, g)
                 loss = loss + l_i

@@ -18,6 +18,8 @@ REF = os.path.join(SRC, "repro")
 
 # the host modules the port carries as file-for-file copies
 COPIED = [
+    "analysis/engine.py", "analysis/rules/jit_rules.py",
+    "analysis/rules/precision_rules.py", "analysis/rules/purity_rules.py",
     "analysis/sanitizer.py",
     "checkpoint/__init__.py", "checkpoint/stream.py",
     "configs/__init__.py", "configs/deepseek_moe_16b.py",
@@ -47,7 +49,8 @@ COPIED = [
 # modules that reached JAX, the package façades, and the kernel packages
 # (models/convert.py, tree.py and launch/__init__.py have no counterpart)
 REWRITTEN = [
-    "analysis/__init__.py", "core/balancer.py", "core/geometry.py",
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/kernels.py",
+    "analysis/rules/__init__.py", "core/balancer.py", "core/geometry.py",
     "streaming/__init__.py", "streaming/engine.py",
     "streaming/experiments.py", "streaming/planes.py",
     "kernels/__init__.py", "kernels/stats_update/__init__.py",
