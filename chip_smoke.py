@@ -95,7 +95,15 @@ paths at realistic sizes:
   kernel signature checks (every entry traced on fake CUDA tensors
   through its op's fake), no violation and no mismatch.
 
-Phase ``k1`` also holds ``stats_update.close_round`` (the whole
+Every round close folds the live rows in place in the page-locked host
+banks, one launch of K1's in-place entry (``stats_update.close_live``);
+phase ``k1_live`` runs that entry at the main path's last round close
+on page-locked copies of the banks, bit for bit ``close_live_ref``, and
+gives its time beside the host link's bound (nvidia-smi's PCIe
+generation and width, with a measured page-locked copy rate each way),
+``stats_close`` per call and the main run's re-homings of the banks.
+Phase ``k1`` holds the device contract ((6, P, G1) → (5, P, G1) in
+device memory) and also ``stats_update.close_round`` (the whole
 (8, P, G1) bank, one K1 launch) and ``close_round_xla`` bit for bit to
 ``close_round_ref`` at the main path's (P, G1).  K1–K4 are reached
 through their ``torch.library`` ops, as K5 and K6 are.
@@ -112,9 +120,12 @@ merge kernels.  Phase ``k4`` holds K4 at k = 8, 17 and 32; the
 ``kernels`` line gives K6 twice, at the serve path's last prefill input
 (the launches of its prefill kernels) and, as ``flash_attention_decode``,
 at its last decode input (the launches of its decode and merge
-kernels); each wrapper counts every kernel it launches, and K4's and
-K6's rows split their count by kernel, K1's row by path (``main`` and
-``sharded``, the three shard counts summed), and K5's and K6's by path
+kernels); K1 twice too, in place (``stats_update``, its launches by path:
+``main``, ``sharded`` with the three shard counts summed, and
+``pubsub``'s suite) and as the device contract at the last round
+close's (6, 2·live, G+1) input (``stats_update_inputs``, no launches on
+a path); each wrapper counts every kernel it launches, and K4's and
+K6's rows split their count by kernel, and K5's and K6's by path
 (``serve``, ``serve_hybrid`` and ``serve_mesh``).  K2–K4's operation
 bounds count one instruction per lane and clock
 (SINGLE_ISSUE_OPS_PER_S).
@@ -473,9 +484,124 @@ def k1_error(torch, SU, bank6, decay) -> float:
     return float((got - want).abs().max())
 
 
+# PCIe transfer rate a lane and direction: GT/s and the line code's share
+PCIE_GEN = {1: (2.5, 0.8), 2: (5.0, 0.8), 3: (8.0, 128 / 130),
+            4: (16.0, 128 / 130), 5: (32.0, 128 / 130)}
+H100_PCIE = (5, 16)            # the H100's host link (data sheet): Gen5 ×16
+
+
+def pcie_link() -> dict:
+    """The card's host link — the most it supports with this system and
+    what it runs at now, as nvidia-smi reports them — and the bytes a
+    second it carries each way at the most.  Where nvidia-smi gives no
+    number (as on a machine that hides the PCI bus), the H100's own
+    Gen5 ×16 stands in, and ``source`` says so."""
+    fields = ("pcie.link.gen.max", "pcie.link.width.max",
+              "pcie.link.gen.current", "pcie.link.width.current")
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    vals = [v.strip() for v in (out.stdout.strip().splitlines() or [""])[0]
+            .split(",")]
+    link = dict(zip(("gen_max", "width_max", "gen_current",
+                     "width_current"), vals))
+    try:
+        gen, width = int(link["gen_max"]), int(link["width_max"])
+        link["source"] = "nvidia-smi"
+    except (KeyError, ValueError):
+        gen, width = H100_PCIE
+        link["source"] = f"data sheet (nvidia-smi gave {vals})"
+    rate, code = PCIE_GEN[gen]
+    link.update(gen=gen, width=width,
+                bytes_per_s=rate * 1e9 * code * width / 8)
+    return link
+
+
+def host_ms(fn, reps: int = 21) -> float:
+    """Host time of one call of a function that runs on the CPU: the
+    median of ``reps`` calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def copy_rates(torch, device, nbytes: int = 256 << 20) -> dict:
+    """Bytes a second of one page-locked host ↔ card copy of ``nbytes``,
+    each way, timed as :func:`time_ms` times a kernel."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    rates = {
+        "host_to_card": nbytes / (time_ms(torch, [
+            lambda: card.copy_(host, non_blocking=True)], 5) * 1e-3),
+        "card_to_host": nbytes / (time_ms(torch, [
+            lambda: host.copy_(card, non_blocking=True)], 5) * 1e-3),
+        "bytes": nbytes}
+    del host, card
+    return rates
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+
+def phase_k1_live(torch, np, SU, last, main, device) -> dict:
+    """K1's in-place entry at the main path's last round close (phase
+    ``breakdown``'s live ids and banks as the kernel found them), on
+    page-locked copies: one launch, bit for bit ``close_live_ref`` on
+    host copies.  Its time (CUDA events around the wrapper's calls, the
+    ids' upload included, over page-locked copies rotated as
+    :func:`time_ms` rotates inputs), the plain version's host time, the
+    bytes it reads and writes over the host link, the link's bound from
+    nvidia-smi with a measured page-locked copy rate each way beside
+    it, ``stats_close`` per call and the main run's re-homings."""
+    live, decay, rows, cols = (last[k] for k in ("live", "decay", "rows",
+                                                  "cols"))
+
+    def pinned():
+        return [torch.from_numpy(rows).pin_memory(),
+                torch.from_numpy(cols).pin_memory()]
+
+    got = pinned()
+    before = SU.ops.launches
+    SU.close_live(*got, live, decay, device)
+    torch.cuda.synchronize()
+    launched = SU.ops.launches - before
+    want = [torch.from_numpy(rows.copy()), torch.from_numpy(cols.copy())]
+    SU.close_live_ref(*want, live, decay)
+    check(launched == 1, f"k1_live: {launched} launches for one close")
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "k1_live: the in-place entry differs from close_live_ref")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    n, g1 = len(live), rows.shape[2]
+    read_b, write_b = 6 * 2 * n * g1 * 4, 8 * 2 * n * g1 * 4
+    link = pcie_link()
+    bound_ms = max(read_b, write_b) / link["bytes_per_s"] * 1e3
+    copies = [pinned() for _ in range(max(1, -(-ROTATE_BYTES // (
+        rows.nbytes + cols.nbytes))))]
+    ms = time_ms(torch, [
+        lambda c=c: SU.close_live(c[0], c[1], live, decay, device)
+        for c in copies])
+    plain = [torch.from_numpy(rows.copy()), torch.from_numpy(cols.copy())]
+    res = {"phase": "k1_live", "live": n, "banks": list(rows.shape),
+           "decay": decay, "launches": launched, "bit_for_bit": True,
+           "max_abs_err": err, "ms": ms,
+           "plain_ms": host_ms(lambda: SU.close_live_ref(*plain, live,
+                                                         decay)),
+           "bytes_read": read_b, "bytes_written": write_b, "link": link,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "share_of_bound": bound_ms / ms,
+           "copy_rates": copy_rates(torch, device),
+           "stats_close_ms_per_call": last["stats_close_ms_per_call"],
+           "rehomed_main": main["rehomed"]}
+    emit(res)
+    del copies, got
+    return res
+
 
 def phase_kernel(torch, SU, device) -> float:
     """K1 at P in {256, 2048} rows and G+1 in {513, 1025}, integer
@@ -882,7 +1008,7 @@ def phase_pubsub(torch, T, np, kern, plane, plane_name, device) -> dict:
            "launches": launches}
     emit(out)
     return {"pts": pts_d, "pm": pm_d, "rects": rects_d, "sm": sm_d,
-            "launches": launches}
+            "launches": launches, "k1_launches": k1_suite}
 
 
 def _small_run(T, plane, timeline: str):
@@ -1018,7 +1144,7 @@ def phase_main(torch, T, np, SU) -> dict:
            "injected": injected, "wall_s": wall,
            "injected_per_s": injected / wall, "preload_s": preload_s,
            "rounds": rounds, "k1_launches": launches,
-           "transfers": transfers,
+           "rehomed": router.plane.rehomed, "transfers": transfers,
            "live_partitions": int(len(router.index.parts.live_ids())),
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     emit(out)
@@ -1043,32 +1169,52 @@ def _spans(tracer) -> tuple[dict, int]:
 def phase_breakdown(torch, T, np, SU, main) -> dict:
     """The same run with the engine's tracer on: host seconds per span
     (``round_close`` a whole round, host planner included;
-    ``stats_close`` inside it the gather, upload, K1 launch and download
-    of ``TorchPlane.close_round``; ``fused_window`` a
+    ``stats_close`` inside it the in-place K1 launch of
+    ``TorchPlane.close_round`` and the wait for it; ``fused_window`` a
     whole window, staging included; ``fused_window_dispatch`` the body
     of ``TorchPlane.run_window``; ``tick`` the per-tick boundary steps),
-    the declined windows, and the last round close's K1 input, kept for
-    the kernels line."""
+    ``stats_close`` per call, the declined windows, and the last round
+    close's input as K1's in-place entry found it — the live ids and
+    copies of both banks, taken inside the last ``stats_close`` span
+    (their seconds are left out of the time per call) — for phases
+    ``k1_live`` and ``k1`` and the kernels line, with its six input
+    channels of the live rows as the device contract's (6, 2·live, G+1)
+    bank."""
     eng, _ = _main_engine(T, T.TorchPlane("cuda"),
                           telemetry=T.TelemetryConfig(tick_spans=False))
-    last = {}
-    real = SU.close_round_inputs
+    last, calls = {}, []
+    real = SU.close_live
 
-    def keep_input(bank6, decay=0.5):
-        last["bank6"], last["decay"] = bank6, decay
-        return real(bank6, decay)
+    def keep_input(rows, cols, live, decay=0.5, device=None):
+        calls.append(1)
+        if len(calls) == main["rounds"]:
+            t0 = time.perf_counter()
+            last.update(live=np.array(live), decay=decay,
+                        rows=rows.numpy().copy(), cols=cols.numpy().copy())
+            last["copy_s"] = time.perf_counter() - t0
+        return real(rows, cols, live, decay, device)
 
-    SU.close_round_inputs = keep_input
+    SU.close_live = keep_input
     try:
         wall = _run(torch, np, eng, main)
     finally:
-        SU.close_round_inputs = real
+        SU.close_live = real
     spans, declined = _spans(eng.tracer)
-    check(spans.get("stats_close", {}).get("calls") == main["rounds"]
-          and "fused_window_dispatch" in spans,
+    close = spans.get("stats_close", {})
+    check(close.get("calls") == main["rounds"] == len(calls)
+          and "live" in last and "fused_window_dispatch" in spans,
           "traced run: round-close or window spans missing")
+    last["stats_close_ms_per_call"] = (
+        (close["s"] - last["copy_s"]) / close["calls"] * 1e3)
+    in_ch, live = list(SU.IN_CH), last["live"]
+    last["bank6"] = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [last["rows"][in_ch][:, live], last["cols"][in_ch][:, live]],
+        axis=1))).cuda()
     emit({"phase": "breakdown", "wall_s": wall, "declined_windows": declined,
-          "spans": spans, "k1_last_shape": list(last["bank6"].shape)})
+          "spans": spans,
+          "stats_close_ms_per_call": last["stats_close_ms_per_call"],
+          "capture_copy_s": last["copy_s"],
+          "k1_last_shape": list(last["bank6"].shape)})
     return last
 
 
@@ -3277,6 +3423,7 @@ def main() -> int:
     phase_tf32(torch, T, np, plane)
     main_out = phase_main(torch, T, np, SU)
     last = phase_breakdown(torch, T, np, SU, main_out)
+    live_k1 = phase_k1_live(torch, np, SU, last, main_out, device)
     sharded = phase_sharded(torch, T, np, SU, main_out, smi)
     phase_profile(torch, T, np, main_out)
     match = phase_match(torch, T, np, kern, plane, device)
@@ -3339,6 +3486,9 @@ def main() -> int:
     phase_dryrun(SH, configs, M)
     phase_analysis()
     emit({"library_ms": {
+        "stats_update": "null: no PyTorch call folds rows of host banks "
+                        "in place (stats_update_inputs: cumsum of the three "
+                        "collectors on the card)",
         "spatial_match": "null: no single PyTorch call computes the "
                          "inclusive containment counts of both sides",
         "keyword_match": "null: no single PyTorch call computes the join; "
@@ -3365,11 +3515,18 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": library_ms}
 
+    k1_paths = {"main": main_out["k1_launches"],
+                "sharded": sharded["k1_launches"],
+                "pubsub": pubsub["k1_launches"]}
     emit({"kernels": [
-        row("stats_update", main_out["k1_launches"] + sharded["k1_launches"],
-            worst, times, times["library_ms"],
-            by_path={"main": main_out["k1_launches"],
-                     "sharded": sharded["k1_launches"]}),
+        # K1 in place on the host banks, as every round close runs it
+        {**row("stats_update", sum(k1_paths.values()),
+               live_k1["max_abs_err"], live_k1, by_path=k1_paths),
+         "entry": "stats_update_live_launch"},
+        # K1's device contract at the last round close's live rows
+        {**row("stats_update_inputs", 0, worst, times, times["library_ms"],
+               source="stats_update"),
+         "entry": "stats_update_launch"},
         row("spatial_match", match["launches"]["spatial_match"],
             max(worst_k2, k2["max_abs_err"]), k2),
         row("keyword_match", pubsub["launches"]["keyword_match"],

@@ -22,20 +22,29 @@ the collectors zeroed.  It selects :data:`IN_CH`, runs the op and puts
 ``close_round_xla``: the same fold in torch ops, each prefix sum
 re-associated into a two-level (blocks × width) scan
 (:func:`blocked_cumsum`), exact on integer-valued collectors.
+
+:func:`close_live` is the round close as the data plane runs it: the
+live rows of both (NUM_CH, cap, G1) host banks folded in place.  Given a
+CUDA ``device`` it launches the kernel's second entry once, which reads
+and writes the rows where they lie — the banks must be page-locked, so
+the card addresses them directly — and nothing is gathered, copied or
+scattered; without one it runs the plain version ``close_live_ref`` on
+the host.  Its launch counts in :data:`launches` too.
 """
 import ctypes
 import functools
 import os
 
+import numpy as np
 import torch
 
 from .. import _build
 from .ref import (C_N, C_Q, C_SPAN, N, NUM_CH, PRESPANQ, Q, R, SPANQ,
-                  close_round_inputs_ref)
+                  close_live_ref, close_round_inputs_ref)
 
 __all__ = ["close_round", "close_round_inputs", "close_round_xla",
-           "blocked_cumsum", "stats_update_op", "build", "IN_CH", "OUT_CH",
-           "NUM_CH", "SOURCE", "launches"]
+           "close_live", "blocked_cumsum", "stats_update_op", "build",
+           "IN_CH", "OUT_CH", "NUM_CH", "SOURCE", "launches"]
 
 # input/output channel orders of :func:`close_round_inputs` — the
 # minimal host↔device transfer set for one round close
@@ -50,13 +59,15 @@ launches = 0   # kernel launches since import (or the caller's last reset)
 
 @functools.lru_cache(maxsize=None)
 def build():
-    """Build (first call) and bind the kernel's C launcher."""
-    fn = _build.load("stats_update", SOURCE).stats_update_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
+    """Build (first call) and bind the kernel's two C launchers."""
+    lib = _build.load("stats_update", SOURCE)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.stats_update_launch.argtypes = [ptr, ptr, i32, i32, f32, ptr, i32]
+    lib.stats_update_live_launch.argtypes = [ptr, ptr, i32, i32, ptr, i32,
+                                             f32, ptr, i32]
+    for fn in (lib.stats_update_launch, lib.stats_update_live_launch):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def close_round_inputs(bank6: torch.Tensor, decay: float = 0.5):
@@ -82,10 +93,10 @@ def _close_cuda(bank6, decay):
                       device=bank6.device)
     if p == 0 or g1 == 0:
         return out
-    fn = build()
     stream = torch.cuda.current_stream(bank6.device).cuda_stream
-    err = fn(bank6.data_ptr(), out.data_ptr(), p, g1, float(decay), stream,
-             bank6.device.index)
+    err = build().stats_update_launch(bank6.data_ptr(), out.data_ptr(), p,
+                                      g1, float(decay), stream,
+                                      bank6.device.index)
     if err:
         raise RuntimeError(f"stats_update launch failed: CUDA error {err}")
     launches += 1
@@ -119,6 +130,73 @@ def close_round(bank: torch.Tensor, decay: float = 0.5):
     for c, plane in zip(OUT_CH, out5.unbind(0)):
         out[c] = plane
     return torch.stack(out)
+
+
+def _live_ids(live, cap: int) -> np.ndarray:
+    """``live`` as distinct int32 ids below ``cap``, or raise."""
+    ids = np.asarray(live)
+    if ids.ndim != 1 or (ids.size and ids.dtype.kind not in "iu"):
+        raise TypeError(f"live ids must be a 1-D integer array, got "
+                        f"{ids.dtype} of shape {ids.shape}")
+    if ids.size and (ids.min() < 0 or ids.max() >= cap):
+        raise ValueError(f"live id out of range [0, {cap})")
+    ordered = np.sort(ids)
+    if (ordered[1:] == ordered[:-1]).any():
+        raise ValueError("repeated live id")
+    return ids.astype(np.int32)
+
+
+def close_live(rows: torch.Tensor, cols: torch.Tensor, live,
+               decay: float = 0.5, device=None) -> None:
+    """Algorithm 2 for rows ``live`` of both (NUM_CH, cap, G1) float32
+    host banks, in place; the other rows are not touched.
+
+    With a CUDA ``device``: one launch of the kernel's in-place entry on
+    that card's current stream, which reads and writes the banks where
+    they lie (they must be page-locked, ``tensor.is_pinned()``); only the
+    ids cross to the card.  The banks hold the result once the stream
+    has passed the kernel: the caller synchronises before reading them.
+    Without one (or with the CPU): the plain version on the host."""
+    global launches
+    for name, bank in (("rows", rows), ("cols", cols)):
+        if bank.dim() != 3 or bank.shape[0] != NUM_CH:
+            raise ValueError(f"expected a ({NUM_CH}, cap, G1) {name} bank, "
+                             f"got {tuple(bank.shape)}")
+        if bank.dtype != torch.float32:
+            raise TypeError(f"expected a float32 {name} bank, got "
+                            f"{bank.dtype}")
+        if not bank.is_contiguous():
+            raise ValueError(f"the {name} bank must be C-contiguous")
+        if bank.device.type != "cpu":
+            raise ValueError(f"the banks live on the host, {name} is on "
+                             f"{bank.device}")
+    if rows.shape != cols.shape:
+        raise ValueError(f"rows {tuple(rows.shape)} and cols "
+                         f"{tuple(cols.shape)} differ")
+    _, cap, g1 = rows.shape
+    ids = _live_ids(live, cap)
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cpu":
+        close_live_ref(rows, cols, ids, decay)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"no stats_update kernel for {device}")
+    if not (rows.is_pinned() and cols.is_pinned()):
+        raise ValueError("the card folds the banks in place: both must be "
+                         "page-locked (pin_memory)")
+    if len(ids) == 0 or g1 == 0:
+        return
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    live = torch.from_numpy(ids).to(device, non_blocking=True)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = build().stats_update_live_launch(
+        rows.data_ptr(), cols.data_ptr(), cap, g1, live.data_ptr(), len(ids),
+        float(decay), stream, index)
+    if err:
+        raise RuntimeError(f"stats_update in-place launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
 
 
 def blocked_cumsum(x: torch.Tensor, block: int = 128) -> torch.Tensor:

@@ -39,3 +39,13 @@ def close_round_inputs_ref(bank6, decay: float = 0.5):
     span_new = torch.cumsum(c_span, dim=-1)
     return torch.stack([n_in * decay + cum_n, q_in + cum_q, cum_n + cum_q,
                         spanq_in + span_new, span_new])
+
+
+def close_live_ref(rows, cols, live, decay: float = 0.5) -> None:
+    """In-place form on the host: rows ``live`` (integer ids) of both
+    (NUM_CH, cap, G1) banks folded by :func:`close_round_ref`, the other
+    rows untouched — the function the kernel's in-place entry computes."""
+    live = torch.as_tensor(live, dtype=torch.long)
+    for bank in (rows, cols):
+        bank.index_copy_(1, live, close_round_ref(bank.index_select(1, live),
+                                                  decay))

@@ -21,7 +21,8 @@ Two implementations:
   package's ``JaxPlane``.  The round close runs the hand-written CUDA
   kernel of ``kernels.stats_update`` over the *live* partition subset
   only (retired/unallocated rows are zero or never read again, so
-  skipping them is exact; the reference closes the whole capacity bank);
+  skipping them is exact; the reference closes the whole capacity bank),
+  in place in the page-locked host banks, one launch a round close;
   the exact-match API runs the kernels of ``kernels.spatial_match``,
   ``keyword_match`` and ``knn_match``.  On ``device="cpu"`` every
   kernel's plain PyTorch version runs instead.
@@ -587,6 +588,7 @@ class TorchPlane(DataPlane):
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         self._upload = _UploadCache(self.device)
+        self.rehomed = 0     # stats bank arrays page-locked by close_round
 
     # -- upload / download helpers ------------------------------------------
     def _dev(self, arr, dtype=None) -> torch.Tensor:
@@ -755,35 +757,53 @@ class TorchPlane(DataPlane):
 
     # -- control plane ------------------------------------------------------
     def close_round(self, stats, decay: float, live) -> None:
-        """Live-subset round close on kernel K1.
+        """Live-subset round close on kernel K1, in place.
 
         Retired partitions are cleared when they retire and unallocated
         capacity is zero, and neither is ever read again — so folding
         only the live rows is exact while the work scales with the live
-        count.  Only the six *input* channels of the live rows cross to
-        the device, rows and cols stacked into one (6, 2·live, G+1) bank
-        so a round close is one upload, one launch and one download; R
-        and preSpanQ' are fully derived and the collectors are reset
-        host-side."""
+        count.  On the card the banks stay on the host, page-locked
+        (:meth:`_page_locked`), and one launch of K1's in-place entry
+        reads the six input channels of each live row of both banks
+        where they lie, writes the five maintained channels and zeros
+        the collectors; only the live ids cross to the card, and the
+        stream is synchronised before the protocol reads the banks.  On
+        ``device="cpu"`` the plain version folds the same rows."""
         from ..kernels import stats_update as SU
         live = np.asarray(live)
-        n = len(live)
-        if n == 0:
+        if len(live) == 0:
             return
         tr = _tracer()
-        in_ch = np.array(SU.IN_CH)[:, None]
-        with (tr.span("stats_close", live=n) if tr.enabled
+        with (tr.span("stats_close", live=len(live)) if tr.enabled
               else contextlib.nullcontext()):
-            bank6 = np.concatenate([stats.rows[in_ch, live[None, :]],
-                                    stats.cols[in_ch, live[None, :]]],
-                                   axis=1)
-            out = SU.close_round_inputs(self._batch(bank6), decay=decay)
-            out = out.cpu().numpy()
-        for k, bank in enumerate((stats.rows, stats.cols)):
-            for i, ch in enumerate(SU.OUT_CH):
-                bank[ch, live] = out[i, k * n:(k + 1) * n]
-            for ch in S.COLLECTORS:
-                bank[ch, live] = 0.0
+            if self.device.type == "cuda":
+                rows, cols = self._page_locked(stats)
+                SU.close_live(rows, cols, live, decay, self.device)
+                torch.cuda.current_stream(self.device).synchronize()
+            else:
+                SU.close_live(torch.from_numpy(stats.rows),
+                              torch.from_numpy(stats.cols), live, decay)
+
+    def _page_locked(self, stats) -> tuple[torch.Tensor, torch.Tensor]:
+        """``stats.rows`` and ``stats.cols`` as page-locked host tensors.
+
+        A bank already in page-locked memory is used as it is.  Any
+        other — a bank's first round close on the card, or after the
+        protocol grew the bank and replaced its arrays — is copied once
+        into a page-locked buffer whose NumPy view then replaces it on
+        ``stats``; :attr:`rehomed` counts those copies."""
+        out = []
+        for name in ("rows", "cols"):
+            bank = torch.from_numpy(getattr(stats, name))
+            if not bank.is_pinned():
+                home = torch.empty(bank.shape, dtype=bank.dtype,
+                                   pin_memory=True)
+                home.copy_(bank)
+                setattr(stats, name, home.numpy())
+                self.rehomed += 1
+                bank = home
+            out.append(bank)
+        return out[0], out[1]
 
     def split_costs(self, stats, pids, boxes, r_s, cost_fn):
         """Batched split terms on the device; the pluggable ``cost_fn``

@@ -1,8 +1,10 @@
 """The PyTorch port on a CUDA card: kernels K1–K4 against their plain
-versions (exact), one K1 launch per round close, exact window counts
-with TF32 enabled (ROADMAP F2), the exact-match API and the main path
-on ``TorchPlane("cuda")`` against the port's own NumPy reference plane,
-and the sharded plane's four shards on the card against the CPU port;
+versions (exact; K1's in-place entry on page-locked host banks too), one
+K1 launch per round close, each bank array page-locked once, exact
+window counts with TF32 enabled (ROADMAP F2), the exact-match API and
+the main path on ``TorchPlane("cuda")`` against the port's own NumPy
+reference plane, and the sharded plane's four shards on the card
+against the CPU port;
 kernels K5 and K6 against their plain versions (counts exact, attention
 at the JAX package's tolerances) and the LM serving path through them
 (smoke models against the CPU, jamba's and xlstm's recurrent mixers
@@ -87,6 +89,86 @@ def test_round_close_launches_the_kernel_once(cuda_device):
     S.close_round(ref, 0.5)
     np.testing.assert_array_equal(got.rows[:, live], ref.rows[:, live])
     np.testing.assert_array_equal(got.cols[:, live], ref.cols[:, live])
+
+
+def _host_banks(seed, cap, g1, n_live):
+    """Both (8, cap, g1) banks filled everywhere, integer collectors with
+    negative C_SPAN entries, and unsorted live ids."""
+    rng = np.random.default_rng(seed)
+    banks = []
+    for _ in range(2):
+        bank = rng.integers(0, 50, (8, cap, g1)).astype(np.float32)
+        bank[:S.C_N] += rng.uniform(0, 1, (S.C_N, cap, g1)).astype(
+            np.float32)
+        bank[S.C_SPAN] -= 25.0
+        banks.append(bank)
+    return banks[0], banks[1], rng.permutation(cap)[:n_live]
+
+
+def _pinned(arr):
+    t = torch.empty(arr.shape, dtype=torch.float32, pin_memory=True)
+    t.copy_(torch.from_numpy(arr))
+    return t
+
+
+@pytest.mark.parametrize("cap,g1,n_live", [(256, 513, 66), (40, 1025, 17),
+                                           (5, 1, 5), (300, 2100, 1)])
+@pytest.mark.parametrize("decay", [0.5, 0.9, 1.0])
+def test_in_place_entry_equals_close_live_ref(cuda_device, cap, g1, n_live,
+                                              decay):
+    # both sides round N·decay, then the sum, in float32: bit for bit
+    rows, cols, live = _host_banks(cap + g1, cap, g1, n_live)
+    got = [_pinned(rows), _pinned(cols)]
+    before = SU.ops.launches
+    SU.close_live(*got, live, decay, cuda_device)
+    torch.cuda.synchronize()
+    assert SU.ops.launches == before + 1
+    want = [torch.from_numpy(rows), torch.from_numpy(cols)]
+    SU.close_live_ref(*want, live, decay)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_in_place_entry_refuses_pageable_banks(cuda_device):
+    rows, cols, live = _host_banks(0, 8, 40, 3)
+    with pytest.raises(ValueError, match="page-locked"):
+        SU.close_live(torch.from_numpy(rows), torch.from_numpy(cols), live,
+                      0.5, cuda_device)
+
+
+def test_round_close_re_homes_each_bank_array_once(cuda_device):
+    """The port's protocol on the card beside the same protocol on the
+    CPU plane: one K1 launch a round close, equal banks before and after
+    a growth that replaces the arrays, and each array page-locked once."""
+    from repro_torch.core.protocol import Swarm
+    rng = np.random.default_rng(6)
+    card = Swarm(16, 4, data_plane=T.TorchPlane("cuda"))
+    host = Swarm(16, 4, data_plane=T.TorchPlane("cpu"))
+
+    def close_and_compare(rehomed):
+        live = card.index.parts.live_ids()
+        for bank in ("rows", "cols"):
+            adds = rng.integers(-3, 9, (3, len(live), 17)).astype(np.float32)
+            for sw in (card, host):
+                getattr(sw.stats, bank)[S.C_N:, live] += adds
+        before = SU.ops.launches
+        for sw in (card, host):
+            sw._close_stats()
+        assert SU.ops.launches == before + 1
+        assert card.plane.rehomed == rehomed
+        for bank in ("rows", "cols"):
+            arr = getattr(card.stats, bank)
+            assert torch.from_numpy(arr).is_pinned()
+            np.testing.assert_array_equal(arr, getattr(host.stats, bank))
+
+    close_and_compare(2)
+    close_and_compare(2)
+    for sw in (card, host):
+        sw.index.parts._grow()
+        sw._sync_capacity()
+    assert not torch.from_numpy(card.stats.rows).is_pinned()
+    close_and_compare(4)
+    close_and_compare(4)
 
 
 def test_window_counts_exact_above_2048_with_tf32(cuda_device):

@@ -87,25 +87,25 @@ def test_end_to_end_matches_jax_plane(window, timeline):
 
 def test_round_closes_go_through_the_kernel_wrapper(monkeypatch):
     calls, lives = [], []
-    real = SU.close_round_inputs
+    real = SU.close_live
     real_close = T.TorchPlane.close_round
 
-    def spy(bank6, decay=0.5):
-        calls.append(tuple(bank6.shape))
-        return real(bank6, decay)
+    def spy(rows, cols, live, decay=0.5, device=None):
+        calls.append((tuple(rows.shape), tuple(cols.shape), len(live)))
+        return real(rows, cols, live, decay, device)
 
     def close_spy(self, stats, decay, live):
-        lives.append(len(live))
+        lives.append((stats.rows.shape[1], len(live)))
         return real_close(self, stats, decay, live)
 
-    monkeypatch.setattr(SU, "close_round_inputs", spy)
+    monkeypatch.setattr(SU, "close_live", spy)
     monkeypatch.setattr(T.TorchPlane, "close_round", close_spy)
     res = _run(T, "torch-cpu", window=8, timeline="rebalancing")
     rounds = res.router.swarm.round_no
     assert rounds > 0 and len(calls) == rounds
-    # rows and cols of the live partitions stacked, no padding rows:
-    # (6, 2·live, G+1)
-    assert calls == [(6, 2 * n, G + 1) for n in lives]
+    # both whole (8, cap, G+1) banks, folded in place at the live rows
+    assert calls == [((8, cap, G + 1), (8, cap, G + 1), n)
+                     for cap, n in lives]
 
 
 def test_sweep_defaults_to_the_card():

@@ -138,3 +138,128 @@ def test_split_costs_match_jax_plane(seed):
     for a, b in zip(got[:2], want[:2]):
         np.testing.assert_allclose(np.where(want[2], a, 0.0),
                                    np.where(want[2], b, 0.0), rtol=1e-6)
+
+
+# -- the in-place round close (``close_live``, ``close_live_ref``) ----------
+
+def _live_banks(seed, cap=41, g=30, n_live=23):
+    """Both banks filled everywhere (dead rows too, to see that they stay
+    untouched), integer collectors with negative C_SPAN entries (its
+    difference form), fractional maintained channels, and unsorted live
+    ids."""
+    rng = np.random.default_rng(seed)
+    banks = []
+    for _ in range(2):
+        bank = rng.integers(0, 50, (8, cap, g + 1)).astype(np.float32)
+        bank[:S.C_N] += rng.uniform(0, 1, (S.C_N, cap, g + 1)).astype(
+            np.float32)
+        bank[S.C_SPAN] -= 25.0
+        banks.append(bank)
+    live = rng.permutation(cap)[:n_live]
+    assert (np.diff(live) < 0).any()
+    return banks[0], banks[1], live
+
+
+@pytest.mark.parametrize("decay", [0.5, 0.9, 1.0])
+def test_close_live_ref_equals_the_jax_package(decay):
+    rows, cols, live = _live_banks(int(decay * 10))
+    got_rows, got_cols = rows.copy(), cols.copy()
+    TSU.close_live_ref(torch.from_numpy(got_rows), torch.from_numpy(got_cols),
+                       live, decay)
+    # the reference's whole-bank fold, restricted to the live rows: bit for
+    # bit at every decay (both round N·decay, then the sum, in float32)
+    whole = S.StatsState(rows.copy(), cols.copy(), 30)
+    S.close_round(whole, decay)
+    np.testing.assert_array_equal(got_rows[:, live], whole.rows[:, live])
+    np.testing.assert_array_equal(got_cols[:, live], whole.cols[:, live])
+    dead = np.setdiff1d(np.arange(rows.shape[1]), live)
+    np.testing.assert_array_equal(got_rows[:, dead], rows[:, dead])
+    np.testing.assert_array_equal(got_cols[:, dead], cols[:, dead])
+    # JaxPlane's live-subset close: bit for bit at the dyadic decays; at
+    # 0.9 its XLA fold may contract N·decay + cumN into one rounding,
+    # held to the file's one-rounding tolerance (DECAYS)
+    jp = S.StatsState(rows.copy(), cols.copy(), 30)
+    jax_plane("jax").close_round(jp, decay, live)
+    rtol = dict(DECAYS)[decay]
+    np.testing.assert_allclose(got_rows, jp.rows, rtol=rtol, atol=0)
+    np.testing.assert_allclose(got_cols, jp.cols, rtol=rtol, atol=0)
+    if rtol == 0.0:
+        np.testing.assert_array_equal(got_rows, jp.rows)
+
+
+def test_close_live_on_the_host_is_close_live_ref():
+    rows, cols, live = _live_banks(7)
+    want_rows, want_cols = rows.copy(), cols.copy()
+    TSU.close_live_ref(torch.from_numpy(want_rows),
+                       torch.from_numpy(want_cols), live, 0.5)
+    before = TSU.ops.launches
+    TSU.close_live(torch.from_numpy(rows), torch.from_numpy(cols), live, 0.5)
+    assert TSU.ops.launches == before          # the host path launches nothing
+    np.testing.assert_array_equal(rows, want_rows)
+    np.testing.assert_array_equal(cols, want_cols)
+
+
+def _grown_swarms(decay):
+    """The port's and the JAX package's protocol, the same collectors
+    ingested on both, one round closed, then the partition table grown so
+    that ``_sync_capacity`` replaces both banks' arrays (``np.concatenate``)
+    and more collectors ingested."""
+    from repro.core.protocol import Swarm as JaxSwarm
+    from repro_torch.core.protocol import Swarm as TorchSwarm
+    rng = np.random.default_rng(5)
+    jax_sw = JaxSwarm(16, 4, decay=decay, data_plane=jax_plane("jax"))
+    torch_sw = TorchSwarm(16, 4, decay=decay, data_plane=TorchPlane("cpu"))
+
+    def ingest():
+        cap = jax_sw.stats.rows.shape[1]
+        live = jax_sw.index.parts.live_ids()
+        for sw in (jax_sw, torch_sw):
+            assert sw.stats.rows.shape[1] == cap
+        for bank in ("rows", "cols"):
+            adds = rng.integers(-3, 9, (3, len(live), 17)).astype(np.float32)
+            for sw in (jax_sw, torch_sw):
+                getattr(sw.stats, bank)[S.C_N:, live] += adds
+
+    ingest()
+    for sw in (jax_sw, torch_sw):
+        sw._close_stats()
+    old = (torch_sw.stats.rows, torch_sw.stats.cols)
+    for sw in (jax_sw, torch_sw):
+        sw.index.parts._grow()
+        sw._sync_capacity()
+    assert torch_sw.stats.rows is not old[0]
+    assert torch_sw.stats.cols is not old[1]
+    ingest()
+    return jax_sw, torch_sw
+
+
+@pytest.mark.parametrize("decay", [0.5, 1.0])
+def test_torch_close_round_after_a_capacity_growth(decay):
+    jax_sw, torch_sw = _grown_swarms(decay)
+    for sw in (jax_sw, torch_sw):
+        sw._close_stats()
+    np.testing.assert_array_equal(torch_sw.stats.rows, jax_sw.stats.rows)
+    np.testing.assert_array_equal(torch_sw.stats.cols, jax_sw.stats.cols)
+    assert torch_sw.plane.rehomed == 0     # the host plane page-locks none
+
+
+def test_close_live_rejects_what_the_kernel_does_not_take():
+    rows, cols, live = _live_banks(9)
+    r, c = torch.from_numpy(rows), torch.from_numpy(cols)
+    with pytest.raises(TypeError, match="float32"):
+        TSU.close_live(r.double(), c, live)
+    with pytest.raises(ValueError, match="C-contiguous"):
+        TSU.close_live(r, c.transpose(1, 2).contiguous().transpose(1, 2),
+                       live)
+    with pytest.raises(ValueError, match="out of range"):
+        TSU.close_live(r, c, np.array([0, rows.shape[1]]))
+    with pytest.raises(ValueError, match="out of range"):
+        TSU.close_live(r, c, np.array([-1, 3]))
+    with pytest.raises(ValueError, match="repeated"):
+        TSU.close_live(r, c, np.array([4, 2, 4]))
+    with pytest.raises(TypeError, match="integer"):
+        TSU.close_live(r, c, np.array([1.0, 2.0]))
+    with pytest.raises(ValueError, match=r"\(8, cap, G1\)"):
+        TSU.close_live(r[:6], c[:6], live)
+    # nothing was folded by a refused call
+    np.testing.assert_array_equal(rows, _live_banks(9)[0])
