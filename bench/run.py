@@ -1,0 +1,63 @@
+"""The benchmark of SWARM's PyTorch and CUDA port on one card.
+
+    python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+runs one cell of ``BENCHMARK.json`` from the root of a checkout and
+prints one JSON object as the last line of standard output: ``correct``,
+``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics,
+or with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
+a ``breakdown``, and last ``checks``, each number compared with the plain
+reference beside its limit.  It needs a CUDA card and exits non-zero
+with no result line without one.
+"""
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import sys  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+    # every build and kernel cache at a fixed path inside the checkout
+    cache = os.path.join(ROOT, ".bench_cache")
+    os.environ["TORCH_EXTENSIONS_DIR"] = os.path.join(cache, "torch_extensions")
+    os.environ["TRITON_CACHE_DIR"] = os.path.join(cache, "triton")
+    sys.path[:0] = [HERE, os.path.join(ROOT, "src")]
+    import torch
+
+    from harness import load_cell, run_cell
+    cell = load_cell(args.workload)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        print(f"{args.workload} needs {cell.chips} CUDA card(s); "
+              f"found {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    out = run_cell(cell, args.seed & (2 ** 64 - 1), args.seconds,
+                   bool(args.trace), "cuda", T_START)
+    loaded = sorted(FORBIDDEN & {m.split(".")[0] for m in sys.modules})
+    if loaded:
+        print(f"the run loaded {loaded}: the benchmark drives the port "
+              "alone", file=sys.stderr)
+        return 3
+    for name, c in out["checks"].items():
+        print(f"check {name}: {c['value']} (limit {c['limit']})",
+              file=sys.stderr)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
