@@ -38,6 +38,8 @@ from ..core import Swarm, balancer, geometry
 from ..core.global_index import GlobalIndex
 from ..queries import QueryModel, TermHasher, TupleStore, WorkloadSpec
 from ..queries.keywords import bucket_onehot
+from ..telemetry.tracer import _NULL_SPAN
+from ..telemetry.tracer import current as _tracer
 from .api import (NO_ROUND, EventBatch, MachineFailure, MachineJoin,
                   MachineSlow, MemoryUsage, ProbeBatch, QueryBatch,
                   RoundOutcome, RoutingDecision, TupleBatch)
@@ -366,29 +368,50 @@ class _GridRouter(_Base):
         """Rebuild per-partition resident counts after a plan change —
         vectorized partitions × queries overlap test, chunked so
         million-subscription pub/sub sets never materialize the full
-        Q × P hit matrix."""
+        Q × P hit matrix.
+
+        With the tracer on, span ``query_reindex`` carries the call's
+        counts (``queries``, ``live``, ``pairs`` = queries × live
+        partitions tested, ``hits`` = Σ ``qres`` after the rebuild,
+        ``chunks``) over children ``reindex_cells`` (the rects' cells,
+        once), ``reindex_overlap`` (a chunk's overlap and column sum)
+        and, on keyword routers, ``reindex_pivots`` (a chunk's pivot
+        histogram)."""
         self._ensure_qres()
         self.qres[:] = 0
         if self.qres_kw is not None:
             self.qres_kw[:] = 0.0
-        if not len(self.query_rects):
+        n = len(self.query_rects)
+        if not n:
             return
+        tr = _tracer()
+        on = tr.enabled
         g = self.index.grid_size
         p = self.index.parts
         live = p.live_ids()
-        r0, c0, r1, c1 = geometry.rects_to_cells(self.query_rects, g)
-        lr0, lc0 = p.r0[live][None, :], p.c0[live][None, :]
-        lr1, lc1 = p.r1[live][None, :], p.c1[live][None, :]
-        for lo in range(0, len(self.query_rects), self._BULK_CHUNK):
-            hi = min(lo + self._BULK_CHUNK, len(self.query_rects))
-            hit = geometry.boxes_overlap(
-                r0[lo:hi, None], c0[lo:hi, None],
-                r1[lo:hi, None], c1[lo:hi, None], lr0, lc0, lr1, lc1)
-            self.qres[live] += hit.sum(0)
-            if self.qres_kw is not None:
-                qi, li = np.nonzero(hit)
-                np.add.at(self.qres_kw,
-                          (live[li], self.sub_pivots[lo:hi][qi]), 1.0)
+        with (tr.span("query_reindex") if on else _NULL_SPAN) as sp:
+            with (tr.span("reindex_cells") if on else _NULL_SPAN):
+                r0, c0, r1, c1 = geometry.rects_to_cells(self.query_rects, g)
+            lr0, lc0 = p.r0[live][None, :], p.c0[live][None, :]
+            lr1, lc1 = p.r1[live][None, :], p.c1[live][None, :]
+            chunk = self._BULK_CHUNK
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                with (tr.span("reindex_overlap") if on else _NULL_SPAN):
+                    hit = geometry.boxes_overlap(
+                        r0[lo:hi, None], c0[lo:hi, None],
+                        r1[lo:hi, None], c1[lo:hi, None],
+                        lr0, lc0, lr1, lc1)
+                    self.qres[live] += hit.sum(0)
+                if self.qres_kw is not None:
+                    with (tr.span("reindex_pivots") if on else _NULL_SPAN):
+                        qi, li = np.nonzero(hit)
+                        np.add.at(self.qres_kw,
+                                  (live[li], self.sub_pivots[lo:hi][qi]),
+                                  1.0)
+            if on:
+                sp.set(queries=n, live=len(live), pairs=n * len(live),
+                       hits=int(self.qres.sum()), chunks=-(-n // chunk))
 
     def _area_frac(self) -> np.ndarray:
         """Partition area as a fraction of the space, per allocated pid

@@ -45,6 +45,7 @@ dispatch to the fused mode, so the experiment suite can sweep it.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass, field
 
@@ -54,12 +55,16 @@ from ..core import geometry
 from ..core.cost_model import CostReport, delivery_wire_bytes
 from ..ft import CoordinatorGroup, LinkModel, LinkSpec
 from ..telemetry import NOOP, TelemetryConfig, Tracer, activate
+from ..telemetry.tracer import _NULL_SPAN
 from .api import (NO_ROUND, EventStream, MachineFailure, MachineJoin,
                   MachineSlow, MembershipChange, ProbeBatch, QueryBatch,
                   Router, RoundOutcome, RoutingDecision, TupleBatch)
 from .fused import (EngineCarry, FusedOutputs, FusedParams,
                     host_process_tick)
 from .sources import ScenarioSource
+
+# name of the profiler-capture anchors (``record_function`` + instant)
+PROFILER_ANCHOR = "profiler_anchor"
 
 
 @dataclass
@@ -191,6 +196,7 @@ class StreamingEngine:
         self.tracer = (Tracer(tcfg)
                        if tcfg is not None and tcfg.enabled else NOOP)
         self._fused = None   # device-resident state cache (run_fused)
+        self.declined_windows = 0   # fused windows replayed per tick
         # geo fault model (DESIGN.md §12): per-pair link latency/jitter
         # and the compiled chaos schedule (carried by the source, like
         # membership timelines).  ``_faults`` gates every new code path
@@ -689,24 +695,42 @@ class StreamingEngine:
 
     def _profiler_hook(self):
         """Optional ``torch.profiler`` capture around a run (device-level
-        detail beneath our spans; ``TelemetryConfig.jax_profiler_dir``
-        keeps its name and receives the trace); a no-op nullcontext
-        otherwise."""
-        import contextlib
+        detail beneath our spans), written to
+        ``TelemetryConfig.profiler_dir``; a no-op context otherwise."""
         tcfg = self.cfg.telemetry
-        if tcfg is None or not tcfg.jax_profiler_dir:
-            return contextlib.nullcontext()
-        try:
+        if tcfg is None or not tcfg.profiler_dir:
+            return _NULL_SPAN
+        return self._profiled(tcfg.profiler_dir)
+
+    @contextlib.contextmanager
+    def _profiled(self, out_dir: str):
+        """The capture.  With the tracer on it holds a
+        ``record_function`` anchor (:data:`PROFILER_ANCHOR`) at its start
+        and at its end, each taken at a tracer reading that the tracer
+        also records as an instant of that name (``at``: "start" /
+        "end"): the two give the offset between the span export's clock
+        and the device trace's."""
+        import torch
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts,
+                     on_trace_ready=tensorboard_trace_handler(out_dir)):
+            self._profiler_anchor("start")
+            try:
+                yield
+            finally:
+                self._profiler_anchor("end")
+
+    def _profiler_anchor(self, at: str) -> None:
+        tr = self.tracer
+        if tr.enabled:
             import torch
-            from torch.profiler import (ProfilerActivity, profile,
-                                        tensorboard_trace_handler)
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            return profile(activities=acts, on_trace_ready=(
-                tensorboard_trace_handler(tcfg.jax_profiler_dir)))
-        except Exception:
-            return contextlib.nullcontext()
+            with torch.profiler.record_function(PROFILER_ANCHOR):
+                t = tr.now()
+            tr.instant(PROFILER_ANCHOR, tick=self.tick_no, t0=t, at=at)
 
     def step(self) -> None:
         with activate(self.tracer):
@@ -929,11 +953,14 @@ class StreamingEngine:
             # stage W ticks of candidate batches (tick-ordered, so the
             # source RNG stream matches the per-tick loop); keyword
             # workloads stage the hashed probe buckets alongside
-            batches = [self.stream.tuples(b, tt) for tt in range(t, stop)]
-            xy = np.stack([bt.xy for bt in batches])
-            kw_stack = (np.stack([bt.buckets for bt in batches])
-                        if batches[0].buckets is not None else None)
-            self._fused_refresh(plane)
+            with (tr.span("window_stage") if tr.enabled else _NULL_SPAN):
+                batches = [self.stream.tuples(b, tt)
+                           for tt in range(t, stop)]
+                xy = np.stack([bt.xy for bt in batches])
+                kw_stack = (np.stack([bt.buckets for bt in batches])
+                            if batches[0].buckets is not None else None)
+            with (tr.span("state_refresh") if tr.enabled else _NULL_SPAN):
+                self._fused_refresh(plane)
             # ingest-tier cell ids: forwarded only to planes that want
             # them, and only when every staged batch carries ids for
             # exactly this router's grid (a hint, verified here)
@@ -969,13 +996,16 @@ class StreamingEngine:
                 # backpressure engaged mid-window: the fused window
                 # cannot represent throttled injection — replay the
                 # staged batches through the exact per-tick path
-                outs, resid = self._window_reference(xy, kw_stack)
+                self.declined_windows += 1
+                with (tr.span("window_replay") if tr.enabled
+                      else _NULL_SPAN):
+                    outs, resid = self._window_reference(xy, kw_stack)
             # heartbeats advance through the window (membership is
             # constant inside one: boundaries are cut at every
             # scheduled event and detection tick)
             self._advance_heartbeats(w)
             if win_span is not None:
-                win_span.set(ok=bool(ok),
+                win_span.set(ok=bool(ok), declined=self.declined_windows,
                              throughput=float(outs.throughput.sum()))
                 win_span.__exit__(None, None, None)
                 self._fused_tick_telemetry(t, w, w0, tr.now(), outs)
@@ -1246,14 +1276,22 @@ class StreamingEngine:
 
     def _fused_sync_collectors(self) -> None:
         """Drain device-accumulated N′ collector deltas into the host
-        stats bank (no-op for routers that keep no statistics)."""
+        stats bank (no-op for routers that keep no statistics).  With
+        the tracer on, a drain that finds deltas is span
+        ``collectors_drain`` (the banks' read, fold and reset) with the
+        banks' ``bytes``."""
         f = self._fused
         if not f or not f["host"].track_stats:
             return
+        tr = self.tracer
+        d0 = tr.now()
         cnr, cnc = f["plane"].collector_banks(f["state"])
         if cnr.any() or cnc.any():
             self.router.fused_absorb(cnr, cnc)
             f["state"] = f["plane"].reset_collectors(f["state"])
+            if tr.enabled:
+                tr.emit_span("collectors_drain", d0, tr.now(),
+                             bytes=cnr.nbytes + cnc.nbytes)
 
     def _reshard_outcome(self, outcome) -> None:
         """Physically re-home a round/recovery outcome's transferred

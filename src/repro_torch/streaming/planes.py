@@ -615,11 +615,6 @@ class TorchPlane(DataPlane):
             cp.query_area, cp.match_factor, cp.store_cost,
             cp.delivery_cost))
 
-    def _fence(self) -> None:
-        """Wait for the device (enabled-tracer spans only)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     @staticmethod
     def _host(t: torch.Tensor, dtype) -> np.ndarray:
         return t.cpu().numpy().astype(dtype, copy=False)
@@ -858,35 +853,30 @@ class TorchPlane(DataPlane):
             raise NotImplementedError(
                 "query registration is a host-boundary event; ingest "
                 "QueryBatch through the router between fused windows")
-        tr = _tracer()
-        with (tr.span("fused_step_dispatch", batch=len(xy)) if tr.enabled
-              else contextlib.nullcontext()):
-            xy_t = self._batch(xy)
-            g = state.grid.shape[0]
-            row, col = geometry.points_to_cells(xy_t, g)
-            row, col = row.long(), col.long()
-            pids = state.grid[row, col]
-            owners = state.owner[pids]
-            sc = self._cost_scalars(cp)
-            dels = None
-            if kw is not None:
-                from ..queries.keywords import bucket_onehot
-                t1 = state.qres_kw.shape[1]
-                costs, dels = self._kw_cost_body(
-                    pids, owners, state.qres_kw,
-                    self._batch(bucket_onehot(kw, t1 - 1)), state.q_machine,
-                    state.area_frac, sc)
-            else:
-                costs = self._cost_body(len(xy), pids, owners, state.qres,
-                                        state.q_machine, state.area_frac, sc,
-                                        tuple_driven=cp.tuple_driven)
-            if track_stats:
-                one = torch.ones(len(xy), dtype=torch.float32,
-                                 device=self.device)
-                state.cn_rows.index_put_((pids, row), one, accumulate=True)
-                state.cn_cols.index_put_((pids, col), one, accumulate=True)
-            if tr.enabled:
-                self._fence()
+        xy_t = self._batch(xy)
+        g = state.grid.shape[0]
+        row, col = geometry.points_to_cells(xy_t, g)
+        row, col = row.long(), col.long()
+        pids = state.grid[row, col]
+        owners = state.owner[pids]
+        sc = self._cost_scalars(cp)
+        dels = None
+        if kw is not None:
+            from ..queries.keywords import bucket_onehot
+            t1 = state.qres_kw.shape[1]
+            costs, dels = self._kw_cost_body(
+                pids, owners, state.qres_kw,
+                self._batch(bucket_onehot(kw, t1 - 1)), state.q_machine,
+                state.area_frac, sc)
+        else:
+            costs = self._cost_body(len(xy), pids, owners, state.qres,
+                                    state.q_machine, state.area_frac, sc,
+                                    tuple_driven=cp.tuple_driven)
+        if track_stats:
+            one = torch.ones(len(xy), dtype=torch.float32,
+                             device=self.device)
+            state.cn_rows.index_put_((pids, row), one, accumulate=True)
+            state.cn_cols.index_put_((pids, col), one, accumulate=True)
         out = (self._host(pids, np.int32), self._host(owners, np.int32),
                self._host(costs, np.float32))
         if dels is not None:

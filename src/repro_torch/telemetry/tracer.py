@@ -2,12 +2,17 @@
 stack, with a zero-overhead disabled path.
 
 Span taxonomy (DESIGN.md §9): the control-plane timeline carries
-``tick``, ``fused_window`` (with ``fused_window_compile`` /
-``fused_window_dispatch`` children from the JAX plane), ``round_close``
-→ ``plan_round`` / ``apply_plan``, ``failover`` and ``heartbeat_scan``
-spans plus instants for FSM transitions, rebalances, membership events
-and heartbeat misses; each machine owns a track of per-tick spans and
-queue/utilization counters.
+``tick``, ``fused_window`` (args ``ok`` and a running ``declined``
+count; children ``window_stage``, ``state_refresh``,
+``fused_window_dispatch`` from the data plane, ``window_replay`` on a
+declined window), ``collectors_drain`` (``bytes``), ``query_reindex``
+(``queries``, ``live``, ``pairs``, ``hits``, ``chunks``) →
+``reindex_cells`` / ``reindex_overlap`` / ``reindex_pivots``,
+``round_close`` → ``stats_close`` / ``plan_round`` / ``apply_plan``,
+``failover`` and ``heartbeat_scan`` spans plus instants for FSM
+transitions, rebalances, membership events, heartbeat misses and the
+``profiler_anchor`` of a ``torch.profiler`` capture; each machine owns a
+track of per-tick spans and queue/utilization counters.
 
 The zero-overhead contract: when telemetry is off the engine holds the
 :data:`NOOP` singleton, every instrumentation site is guarded by a
@@ -35,14 +40,15 @@ class TelemetryConfig:
     """Engine-facing switch (``EngineConfig.telemetry``).  ``None``
     (the default) keeps the no-op singleton; an instance turns the
     tracer on.  ``trace_dir`` makes ``experiments.run`` export JSONL +
-    Perfetto files after the run; ``jax_profiler_dir`` additionally
-    wraps the run in a ``jax.profiler.trace`` capture (device-level
-    detail beyond our spans)."""
+    Perfetto files after the run; ``profiler_dir`` additionally
+    wraps each ``StreamingEngine.run`` in a ``torch.profiler`` capture
+    written there (device-level detail beyond our spans), anchored to
+    the tracer's clock by ``profiler_anchor`` instants."""
 
     enabled: bool = True
     trace_dir: str | None = None
     tick_spans: bool = True      # per-machine per-tick spans + counters
-    jax_profiler_dir: str | None = None
+    profiler_dir: str | None = None
 
     def __str__(self):  # keeps Experiment labels compact & stable
         parts = [] if self.enabled else ["off"]
@@ -50,8 +56,8 @@ class TelemetryConfig:
             parts.append("trace")
         if not self.tick_spans:
             parts.append("nospans")
-        if self.jax_profiler_dir:
-            parts.append("jaxprof")
+        if self.profiler_dir:
+            parts.append("prof")
         return "telemetry(" + ",".join(parts or ["on"]) + ")"
 
 
@@ -127,7 +133,6 @@ class Tracer:
         self._epoch = time.perf_counter_ns()
         self._seq = 0
         self._stack: list[TraceEvent] = []
-        self._counters: dict[tuple, float] = {}
 
     # -- time ---------------------------------------------------------
     def now(self) -> int:
@@ -177,16 +182,10 @@ class Tracer:
 
     def counter(self, name: str, value, *, machine: int = CONTROL,
                 tick: int = -1, t0: int | None = None):
-        v = float(value)
-        self._counters[(name, machine)] = v
         self.events.append(TraceEvent(
             "counter", name, machine, tick, self._seq, -1,
-            self.now() if t0 is None else t0, 0, {"value": v}))
+            self.now() if t0 is None else t0, 0, {"value": float(value)}))
         self._seq += 1
-
-    def gauge(self, name: str, machine: int = CONTROL) -> float | None:
-        """Last value a counter was set to (None if never set)."""
-        return self._counters.get((name, machine))
 
     def counter_series(self, name: str, machine: int = CONTROL):
         """(ticks, values) of one counter — the example's UoW timeline
@@ -255,9 +254,6 @@ class _NoopTracer:
 
     def counter(self, name, value, *, machine=CONTROL, tick=-1, t0=None):
         pass
-
-    def gauge(self, name, machine=CONTROL):
-        return None
 
     def counter_series(self, name, machine=CONTROL):
         return [], []
