@@ -317,6 +317,15 @@ class _GridRouter(_Base):
                      np.float64)
             if self.hasher is not None else None)
         self.store = self._make_store(index.parts.capacity)
+        # kept between re-indexes: the standing queries' cells, the query
+        # set and partition table they were kept for, and which pids'
+        # rows hold their exact count over that set (with no query yet,
+        # every live pid's zero row does)
+        self._cells = geometry.rects_to_cells(self.query_rects,
+                                              index.grid_size)
+        self._cells_of = self.query_rects
+        self._parts_of = index.parts
+        self._counted = index.parts.alive.copy()
 
     def _ensure_qres(self):
         cap = self.index.parts.capacity
@@ -328,6 +337,24 @@ class _GridRouter(_Base):
                 [self.qres_kw,
                  np.zeros((cap - len(self.qres_kw),
                            self.qres_kw.shape[1]), np.float64)])
+        if len(self._counted) < cap:
+            self._counted = np.concatenate(
+                [self._counted, np.zeros(cap - len(self._counted), bool)])
+
+    def _kept(self) -> bool:
+        """Whether the kept cells and counts belong to the current query
+        set and partition table (a checkpoint restore replaces the set)."""
+        return (self._cells is not None
+                and self._cells_of is self.query_rects
+                and self._parts_of is self.index.parts)
+
+    def register_queries(self, rects: np.ndarray,
+                         terms: np.ndarray | None = None) -> None:
+        # kept cells extend only the set they were kept for; otherwise
+        # they go, and the next re-index rebuilds in full
+        if not self._kept():
+            self._cells = None
+        super().register_queries(rects, terms)
 
     def _index_queries(self, rects: np.ndarray,
                        terms: np.ndarray | None = None) -> None:
@@ -337,12 +364,19 @@ class _GridRouter(_Base):
             piv = self.hasher.pivots(terms, len(rects))
             self.sub_pivots = np.concatenate([self.sub_pivots, piv])
         g = self.index.grid_size
+        p = self.index.parts
         r0, c0, r1, c1 = geometry.rects_to_cells(rects, g)
+        if self._cells is not None:
+            self._cells = tuple(np.concatenate([k, b]) for k, b in
+                                zip(self._cells, (r0, c0, r1, c1)))
+            self._cells_of = self.query_rects
+            # the batch is counted on live pids only: a retired pid's row
+            # no longer holds its count over the grown set
+            self._counted[:p.n_alloc] &= p.alive[:p.n_alloc]
         if len(rects) >= self.BULK_INDEX_MIN:
             # bulk registration (pub/sub preloads millions of standing
             # subscriptions): chunked queries × live-partitions overlap
             # matrix instead of a per-rect Python loop
-            p = self.index.parts
             live = p.live_ids()
             lr0, lc0 = p.r0[live][None, :], p.c0[live][None, :]
             lr1, lc1 = p.r1[live][None, :], p.c1[live][None, :]
@@ -365,53 +399,72 @@ class _GridRouter(_Base):
                 self.qres_kw[pids, piv[i]] += 1.0
 
     def reindex_all_queries(self) -> None:
-        """Rebuild per-partition resident counts after a plan change —
-        vectorized partitions × queries overlap test, chunked so
-        million-subscription pub/sub sets never materialize the full
-        Q × P hit matrix.
+        """Bring the per-partition resident counts up to date after a
+        plan change.  The counts and the queries' cells are kept between
+        calls, and a plan change only mints pids and retires others, so
+        a call touches only those: a retired pid's row is zeroed; a new
+        pid with its parent's box (a subset move) takes the parent's
+        rows; any other new pid (a split's half, a merge) is tested
+        against every query's cells, one pid at a time.  After the query
+        set or the partition table was replaced (a checkpoint restore)
+        the cells are rebuilt and every live pid is tested.  Counts are
+        integers, so the result is the exact count from scratch.
 
         With the tracer on, span ``query_reindex`` carries the call's
-        counts (``queries``, ``live``, ``pairs`` = queries × live
-        partitions tested, ``hits`` = Σ ``qres`` after the rebuild,
-        ``chunks``) over children ``reindex_cells`` (the rects' cells,
-        once), ``reindex_overlap`` (a chunk's overlap and column sum)
-        and, on keyword routers, ``reindex_pivots`` (a chunk's pivot
-        histogram)."""
+        counts (``queries``, ``live``, ``pairs`` = queries × pids tested,
+        ``hits`` = Σ ``qres`` after, ``counted`` = pids tested,
+        ``inherited`` = pids given a parent's rows, ``dropped`` = retired
+        pids zeroed, ``full`` = 1 when the cells were rebuilt) over
+        children ``reindex_cells`` (the rebuild), ``reindex_overlap`` (a
+        pid's overlaps and their count) and, on keyword routers,
+        ``reindex_pivots`` (its pivot histogram)."""
         self._ensure_qres()
-        self.qres[:] = 0
-        if self.qres_kw is not None:
-            self.qres_kw[:] = 0.0
-        n = len(self.query_rects)
-        if not n:
-            return
         tr = _tracer()
         on = tr.enabled
-        g = self.index.grid_size
+        kw = self.qres_kw
         p = self.index.parts
-        live = p.live_ids()
+        full = not self._kept()
         with (tr.span("query_reindex") if on else _NULL_SPAN) as sp:
-            with (tr.span("reindex_cells") if on else _NULL_SPAN):
-                r0, c0, r1, c1 = geometry.rects_to_cells(self.query_rects, g)
-            lr0, lc0 = p.r0[live][None, :], p.c0[live][None, :]
-            lr1, lc1 = p.r1[live][None, :], p.c1[live][None, :]
-            chunk = self._BULK_CHUNK
-            for lo in range(0, n, chunk):
-                hi = min(lo + chunk, n)
+            if full:
+                with (tr.span("reindex_cells") if on else _NULL_SPAN):
+                    self._cells = geometry.rects_to_cells(
+                        self.query_rects, self.index.grid_size)
+                self._cells_of, self._parts_of = self.query_rects, p
+                self._counted[:] = False
+            alive = p.alive[:p.n_alloc]
+            counted = self._counted[:p.n_alloc]
+            new = np.flatnonzero(alive & ~counted)
+            par = p.parent[new]
+            same = ((par >= 0) & counted[par]
+                    & (p.r0[new] == p.r0[par]) & (p.c0[new] == p.c0[par])
+                    & (p.r1[new] == p.r1[par]) & (p.c1[new] == p.c1[par]))
+            self.qres[new[same]] = self.qres[par[same]]
+            if kw is not None:
+                kw[new[same]] = kw[par[same]]
+            tested = new[~same]
+            r0, c0, r1, c1 = self._cells
+            for pid in tested:
                 with (tr.span("reindex_overlap") if on else _NULL_SPAN):
                     hit = geometry.boxes_overlap(
-                        r0[lo:hi, None], c0[lo:hi, None],
-                        r1[lo:hi, None], c1[lo:hi, None],
-                        lr0, lc0, lr1, lc1)
-                    self.qres[live] += hit.sum(0)
-                if self.qres_kw is not None:
+                        r0, c0, r1, c1,
+                        p.r0[pid], p.c0[pid], p.r1[pid], p.c1[pid])
+                    self.qres[pid] = np.count_nonzero(hit)
+                if kw is not None:
                     with (tr.span("reindex_pivots") if on else _NULL_SPAN):
-                        qi, li = np.nonzero(hit)
-                        np.add.at(self.qres_kw,
-                                  (live[li], self.sub_pivots[lo:hi][qi]),
-                                  1.0)
+                        kw[pid] = np.bincount(self.sub_pivots[hit],
+                                              minlength=kw.shape[1])
+            gone = np.flatnonzero(~alive & (counted
+                                            | (self.qres[:p.n_alloc] != 0)))
+            self.qres[gone] = 0
+            if kw is not None:
+                kw[gone] = 0.0
+            counted[:] = alive
             if on:
-                sp.set(queries=n, live=len(live), pairs=n * len(live),
-                       hits=int(self.qres.sum()), chunks=-(-n // chunk))
+                sp.set(queries=len(self.query_rects), live=int(alive.sum()),
+                       pairs=len(self.query_rects) * len(tested),
+                       hits=int(self.qres.sum()), counted=len(tested),
+                       inherited=int(same.sum()), dropped=len(gone),
+                       full=int(full))
 
     def _area_frac(self) -> np.ndarray:
         """Partition area as a fraction of the space, per allocated pid

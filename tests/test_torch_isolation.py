@@ -47,10 +47,16 @@ COPIED = [
     "telemetry/tracer.py",
 ]
 # copies in which the port rewrites named definitions (its tracing inside
-# the round: "docstring" and "import" name the module's own): outside
-# them each stays identical to its counterpart
+# the round, the router's query index kept between rounds: "docstring"
+# and "import" name the module's own): outside them each stays identical
+# to its counterpart
 PARTLY_REWRITTEN = {
-    "streaming/baselines.py": ("import", "_GridRouter.reindex_all_queries"),
+    "streaming/baselines.py": ("import", "_GridRouter.__init__",
+                               "_GridRouter._ensure_qres",
+                               "_GridRouter._kept",
+                               "_GridRouter.register_queries",
+                               "_GridRouter._index_queries",
+                               "_GridRouter.reindex_all_queries"),
     "telemetry/tracer.py": ("docstring", "TelemetryConfig",
                             "Tracer.__init__", "Tracer.counter",
                             "Tracer.gauge", "_NoopTracer.gauge"),

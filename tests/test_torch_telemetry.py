@@ -15,11 +15,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.streaming as T  # noqa: E402
+from repro_torch.streaming.baselines import force_rebalance_round  # noqa: E402
 from repro_torch.streaming.engine import PROFILER_ANCHOR  # noqa: E402
 from repro_torch.telemetry import NOOP, Tracer, activate  # noqa: E402
 
 M = 8
-CHUNK = 500          # a few thousand standing queries → several chunks
 # capacity (range, keyword) at which the rebalancing timeline's fused
 # windows are partly accepted and partly declined (backpressure engages
 # mid-run)
@@ -33,7 +33,7 @@ def _engine(*, keyword=False, window=0, cap=1e9, traced=True, seed=0,
             telemetry=None):
     """SWARM on the CPU plane over a rebalancing timeline (a hotspot
     with a query burst, a round every two ticks) with 3000 standing
-    queries preloaded; the router's re-index chunked at ``CHUNK``."""
+    queries preloaded."""
     scen = T.ScenarioSpec("uniform_normal", ticks=24, preload_queries=3000,
                           query_burst=200, peak=0.6)
     wl = (T.WorkloadSpec(query_model="spatial_keyword", term_buckets=8)
@@ -46,7 +46,6 @@ def _engine(*, keyword=False, window=0, cap=1e9, traced=True, seed=0,
     router = T.RouterSpec("swarm", beta=2).build(
         num_machines=M, workload=wl, data_plane=T.TorchPlane("cpu"),
         seed=seed)
-    router._BULK_CHUNK = CHUNK
     eng = T.StreamingEngine(router, scen.build(seed=seed, workload=wl), cfg)
     router.ingest(eng.stream.preload(scen.preload_queries))
     return eng
@@ -81,25 +80,47 @@ def _span_reindex(eng):
 
 @pytest.mark.parametrize("keyword", [False, True])
 def test_query_reindex_counts(keyword):
+    """Three calls after a few rounds: nothing changed since the last;
+    after a forced round that splits (only its halves are counted);
+    after the standing set was replaced (the cells rebuilt, every live
+    partition counted)."""
     eng = _engine(keyword=keyword)
+    eng.run(6)
     router = eng.router
+    q = len(router.query_rects)
     tr = Tracer()
     with activate(tr):
         router.reindex_all_queries()
-    (sp,) = _spans(tr, "query_reindex")
-    q = len(router.query_rects)
+        hits_before = int(router.qres.sum())
+        rep = force_rebalance_round(router.swarm)
+        router.reindex_all_queries()
+        hits_after_round = int(router.qres.sum())
+        router.query_rects = router.query_rects.copy()
+        router.reindex_all_queries()
+    idle, rnd, full = _spans(tr, "query_reindex")
     live = len(router.index.parts.live_ids())
-    chunks = -(-q // CHUNK)
-    assert chunks > 1
-    assert sp.args == {"queries": q, "live": live, "pairs": q * live,
-                       "hits": int(router.qres.sum()), "chunks": chunks}
-    assert sp.args["hits"] > 0
-    assert len(_children(tr, sp, "reindex_cells")) == 1
-    assert len(_children(tr, sp, "reindex_overlap")) == chunks
-    assert len(_children(tr, sp, "reindex_pivots")) == (
-        chunks if keyword else 0)
+    born, gone = len(rep.new_pids), len(rep.moved_pids)
+    assert idle.args == {"queries": q, "live": live - born + gone,
+                         "pairs": 0, "hits": hits_before, "counted": 0,
+                         "inherited": 0, "dropped": 0, "full": 0}
+    assert [t.action for t in rep.transfers] == ["split"]
+    counted = born
+    assert rnd.args == {"queries": q, "live": live, "pairs": q * counted,
+                        "hits": hits_after_round, "counted": counted,
+                        "inherited": 0, "dropped": gone, "full": 0}
+    assert full.args == {"queries": q, "live": live, "pairs": q * live,
+                         "hits": int(router.qres.sum()), "counted": live,
+                         "inherited": 0, "dropped": 0, "full": 1}
+    assert full.args["hits"] == hits_after_round > 0
+    assert [len(_children(tr, sp, "reindex_cells"))
+            for sp in (idle, rnd, full)] == [0, 0, 1]
+    assert [len(_children(tr, sp, "reindex_overlap"))
+            for sp in (idle, rnd, full)] == [0, counted, live]
+    assert [len(_children(tr, sp, "reindex_pivots"))
+            for sp in (idle, rnd, full)] == (
+        [0, counted, live] if keyword else [0, 0, 0])
     if keyword:                      # the pivot histogram holds every hit
-        assert router.qres_kw.sum() == sp.args["hits"]
+        assert router.qres_kw.sum() == full.args["hits"]
 
 
 def test_reindex_nests_under_tick_and_the_wrapper():
@@ -117,8 +138,10 @@ def test_reindex_nests_under_tick_and_the_wrapper():
     assert (len(_spans(tr, "query_reindex"))
             == len(_spans(tr, "reindex_queries"))
             == len(_spans(eng.tracer, "query_reindex")))
-    for name in ("reindex_cells", "reindex_overlap"):
-        assert _parents(tr, name) == {"query_reindex"}
+    # the cells were kept from the registration: no call rebuilds them
+    assert {e.args["full"] for e in _spans(tr, "query_reindex")} == {0}
+    assert not _spans(tr, "reindex_cells")
+    assert _parents(tr, "reindex_overlap") == {"query_reindex"}
 
 
 @pytest.mark.parametrize("keyword", [False, True])
@@ -180,7 +203,9 @@ def test_same_seed_runs_give_equal_signatures():
     sig = a.tracer.signature()
     assert sig == b.tracer.signature()
     names = {row[1] for row in sig}
-    assert set(NEW_SPANS) <= names
+    # the cells are kept from the registration: no rebuild in the run
+    assert set(NEW_SPANS) - {"reindex_cells"} <= names
+    assert "reindex_cells" not in names
 
 
 def test_profiler_capture_is_anchored_to_the_tracer(tmp_path):
