@@ -30,7 +30,7 @@ def offered_work(cell, seed: int, device: str) -> np.ndarray:
     from traffic import stream
     sysp = {**cell.system, "cap_units": cell.config["system"]["cap_units"]}
     traffic = stream.generate(cell.traffic, sysp, seed)
-    eng = S.build(sysp, traffic, device, False)
+    eng = S.build(sysp, traffic, device, False, cell.chips)
     eng.run(S.warmup_ticks(traffic.cycle, int(sysp["round_every"])))
     t0 = eng.tick_no
     eng.run(traffic.cycle)

@@ -6,7 +6,8 @@ whole traffic cycle from the seed; preload the standing queries; run the
 first cycle through the engine (which registers any query burst and
 warms every shape the cell's rounds use).  The window then drives the
 engine one SWARM round at a time, back to back (a closed loop), for the
-given seconds; the device is synchronised at both of its ends.
+given seconds; every card of the cell is synchronised at both of its
+ends.
 """
 from __future__ import annotations
 
@@ -73,10 +74,11 @@ def _log(*parts) -> None:
     print(*parts, file=sys.stderr, flush=True)
 
 
-def _sync(device: str) -> None:
-    if device != "cpu":
+def _sync(cards: tuple) -> None:
+    if cards:
         import torch
-        torch.cuda.synchronize()
+        for k in cards:
+            torch.cuda.synchronize(k)
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
@@ -104,21 +106,22 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
          f"{sum(len(r) for r, _ in traffic.burst.values())} in bursts, "
          f"generated in {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    eng = S.build(sysp, traffic, device, traced)
+    eng = S.build(sysp, traffic, device, traced, cell.chips)
+    cards = S.cards(eng)
     _log(f"preload in {time.perf_counter() - t0:.3f} s")
     re = int(sysp["round_every"])
     t0 = time.perf_counter()
     eng.run(S.warmup_ticks(traffic.cycle, re))
-    _sync(device)
+    _sync(cards)
     _log(f"warm-up cycle in {time.perf_counter() - t0:.3f} s")
     prof = None
     if traced:
         from readings import Profiler
-        prof = Profiler(eng.tracer)
+        prof = Profiler(eng.tracer, cards)
         prof.start()                  # the profiler's own first-use cost
         eng.run(re)
         prof.stop()
-        prof = Profiler(eng.tracer)
+        prof = Profiler(eng.tracer, cards)
         eng.tracer.events.clear()
         _span_reindex(eng)
     rounds_per_cycle = max(traffic.cycle // re, 1)
@@ -127,7 +130,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     times, live, k = [], [], 0
     tick0 = eng.tick_no
     setup_s = time.perf_counter() - t_start
-    _sync(device)
+    _sync(cards)
     w0 = time.perf_counter()
     if prof is not None:
         prof.start()
@@ -153,11 +156,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
             break
     if profiling:
         prof.stop()
-    _sync(device)
+    _sync(cards)
     window_s = time.perf_counter() - w0
     ticks = eng.tick_no - tick0
     injected = int(np.sum(eng.metrics.injected[tick0:]))
-    peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
+    peak = max((torch.cuda.max_memory_allocated(k) for k in cards), default=0)
     _log(f"window: {k} rounds, {ticks} ticks, {injected} tuples injected "
          f"in {window_s:.3f} s")
     per_cycle = [1e3 * float(np.mean(times[i:i + rounds_per_cycle]))
@@ -179,7 +182,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
     dev = {"platform": "gpu" if device != "cpu" else "cpu",
            "kind": (torch.cuda.get_device_name() if device != "cpu"
                     else "cpu"),
-           "count": 1, "memory_peak_bytes": int(peak)}
+           "count": max(len(cards), 1), "memory_peak_bytes": int(peak)}
     if traced:
         from readings import Trace
         tr = Trace([e for e in eng.tracer.events if e.kind == "span"],

@@ -1,7 +1,10 @@
-"""Router query index (``SwarmRouter.reindex_all_queries``: after a plan
-change, every standing query overlapped against every live partition
-again, on the host): host ms per call, the span the benchmark puts
-around the call."""
+"""Router query index (``SwarmRouter.reindex_all_queries``, on the host,
+after a plan change): the standing queries' cells and per-partition
+counts are kept between calls, and a call counts only the partition ids
+the round minted (a subset move's id takes its parent's rows, a split's
+halves and a merge are tested one id at a time); every live id is
+tested only after the query set or the partition table is replaced.
+Host ms per call, the span the benchmark puts around the call."""
 
 
 def read(trace):

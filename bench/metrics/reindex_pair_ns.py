@@ -1,8 +1,9 @@
 """Router query index (``SwarmRouter.reindex_all_queries``): host ns per
 query × partition pair tested, over the window's re-indexes: Σ duration
 of span ``query_reindex`` over Σ its ``pairs`` arg (standing queries ×
-live partitions).  The per-call time grows with the plan, which only
-splits; the rate per pair does not."""
+the partition ids the call tested: those the round minted, not every
+live one).  The per-call time grows with the ids a round mints; the
+rate per pair does not."""
 
 
 def read(trace):

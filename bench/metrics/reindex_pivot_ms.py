@@ -1,7 +1,7 @@
 """Router query index, keyword routers (``reindex_all_queries``'s pivot
-histogram: ``np.nonzero`` and ``np.add.at`` over each chunk's hits):
-host ms per re-index, Σ span ``reindex_pivots`` over the count of span
-``query_reindex``."""
+histogram: a ``np.bincount`` of each tested partition id's hits by
+their pivot term): host ms per re-index, Σ span ``reindex_pivots``
+over the count of span ``query_reindex``."""
 
 
 def read(trace):

@@ -1,7 +1,8 @@
 """The traced run's readings: the program's tracer spans over the whole
 window, and ``torch.profiler`` over whole replay cycles of it, reduced in
-memory (nothing is written) to the device's busy time, its operations
-and the host span under each idle gap.
+memory (nothing is written) to the cell's cards' busy time, their
+operations and the host span under each stretch in which no card of the
+cell is busy.
 
 The profiler's raw events are read (``key_averages`` takes minutes over
 hundreds of thousands of events).  The tracer's clock and the
@@ -19,8 +20,9 @@ MARK = "bench_mark"
 class Trace:
     """What the per-layer readers read.  ``spans``: the tracer's span
     events of the window.  The rest covers the profiled cycles only:
-    ``busy_s`` and ``window_s``, ``kernels`` (device operation name →
-    durations in seconds, in launch order) and ``closes`` (the live
+    ``window_s``, ``busy_s`` (the mean over the cell's cards of each
+    card's busy seconds), ``kernels`` (device operation name → durations
+    in seconds on every card, in launch order) and ``closes`` (the live
     partitions of each round close, in order)."""
 
     spans: list
@@ -34,10 +36,12 @@ class Trace:
 
 
 class Profiler:
-    """``torch.profiler`` over whole replay cycles of the window."""
+    """``torch.profiler`` over whole replay cycles of the window, on the
+    cell's ``cards`` (CUDA device indices; none on the host)."""
 
-    def __init__(self, tracer):
+    def __init__(self, tracer, cards: tuple):
         self.tracer = tracer
+        self.cards = tuple(cards)
         self.prof = None
 
     def _mark(self) -> int:
@@ -45,22 +49,24 @@ class Profiler:
         with torch.profiler.record_function(MARK):
             return self.tracer.now()
 
-    def start(self) -> None:
+    def _sync(self) -> None:
         import torch
+        for k in self.cards:
+            torch.cuda.synchronize(k)
+
+    def start(self) -> None:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        if self.cards:
             acts.append(ProfilerActivity.CUDA)
+        self._sync()
         self.prof = profile(activities=acts)
         self.prof.__enter__()
         self.t0 = self._mark()
         self.wall0 = time.perf_counter()
 
     def stop(self) -> None:
-        import torch
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        self._sync()
         self.t1 = self._mark()
         self.wall = time.perf_counter() - self.wall0
         self.prof.__exit__(None, None, None)
@@ -72,36 +78,57 @@ class Profiler:
         for e in self.prof.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA:
                 if not getattr(e, "is_user_annotation", lambda: False)():
-                    dev.append((e.start_ns(), e.duration_ns(), e.name()))
+                    dev.append((e.device_index(), e.start_ns(),
+                                e.duration_ns(), e.name()))
             elif e.name() == MARK:
                 marks.append(e.start_ns())
-        marks.sort()
         if len(marks) < 2:
             raise RuntimeError("profiler: the window's markers are missing")
-        lo, hi = marks[0], marks[-1]
-        offset = lo - self.t0            # tracer ns → profiler ns
-        dev = sorted((s, d, n) for s, d, n in dev if lo <= s < hi)
-        busy, gaps, end = 0, [], lo
-        for s, d, _ in dev:
-            if s > end:
-                gaps.append((end, s))
-            busy += max(0, s + d - max(s, end))
-            end = max(end, s + d)
-        if hi > end:
-            gaps.append((end, hi))
-        trace.window_s = (hi - lo) / 1e9
-        trace.busy_s = busy / 1e9
-        for s, d, n in dev:
-            trace.kernels.setdefault(n, []).append(d / 1e9)
-        trace.device_ops = sorted(
-            ([n[:80], sum(v)] for n, v in trace.kernels.items()),
-            key=lambda kv: -kv[1])[:10]
+        offset = min(marks) - self.t0        # tracer ns → profiler ns
         spans = [(e.t0 + offset, e.t0 + e.dur + offset, e.name)
                  for e in trace.spans]
+        (trace.window_s, trace.busy_s, trace.kernels, trace.device_ops,
+         trace.idle_gaps) = device_readings(dev, marks, self.cards, spans)
         trace.closes = [e.args.get("live", 0) for e in trace.spans
                         if e.name == "stats_close"
                         and self.t0 <= e.t0 < self.t1]
-        trace.idle_gaps = _attribute(gaps, spans)
+
+
+def device_readings(events, marks, cards, spans):
+    """The device readings of the profiled cycles, from the profiler's
+    device events ``(card, start_ns, duration_ns, name)``, its window
+    markers (start ns) and the host spans ``(start_ns, end_ns, name)``
+    on the profiler's clock.  Only events on the cell's ``cards`` that
+    start between the first and last marker count.
+
+    Returns ``(window_s, busy_s, kernels, device_ops, idle_gaps)``:
+    ``busy_s`` is the mean over ``cards`` of each card's busy seconds
+    (its events' union), so that 1 − busy / window is the cell's idle
+    share; ``kernels`` and ``device_ops`` take every card's events;
+    ``idle_gaps`` are the stretches where no card is busy, by the host
+    span under each (:func:`_attribute`)."""
+    lo, hi = min(marks), max(marks)
+    busy = dict.fromkeys(cards, 0)       # ns each card is busy
+    end = dict.fromkeys(cards, lo)       # where each card's work ends
+    dev = sorted((s, d, n, k) for k, s, d, n in events
+                 if k in busy and lo <= s < hi)
+    gaps, last = [], lo                  # `last`: where any card's ends
+    for s, d, _, k in dev:
+        busy[k] += max(0, s + d - max(s, end[k]))
+        end[k] = max(end[k], s + d)
+        if s > last:
+            gaps.append((last, s))
+        last = max(last, s + d)
+    if hi > last:
+        gaps.append((last, hi))
+    kernels = {}
+    for s, d, n, _ in dev:
+        kernels.setdefault(n, []).append(d / 1e9)
+    device_ops = sorted(([n[:80], sum(v)] for n, v in kernels.items()),
+                        key=lambda kv: -kv[1])[:10]
+    busy_s = sum(busy.values()) / (max(len(busy), 1) * 1e9)
+    return ((hi - lo) / 1e9, busy_s, kernels, device_ops,
+            _attribute(gaps, spans))
 
 
 def _attribute(gaps, spans) -> list:

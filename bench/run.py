@@ -1,4 +1,4 @@
-"""The benchmark of SWARM's PyTorch and CUDA port on one card.
+"""The benchmark of SWARM's PyTorch and CUDA port on a cell's cards.
 
     python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -7,8 +7,8 @@ prints one JSON object as the last line of standard output: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics,
 or with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 a ``breakdown``, and last ``checks``, each number compared with the plain
-reference beside its limit.  It needs a CUDA card and exits non-zero
-with no result line without one.
+reference beside its limit.  It needs as many CUDA cards as the cell
+names (``chips``) and exits non-zero with no result line with fewer.
 """
 import time
 

@@ -1,8 +1,10 @@
 """The system under test, built from a configuration file's ``system``
-block: SWARM's router over ``TorchPlane`` on one device, the streaming
-engine fed by the benchmark's replay source, and the standing queries
-preloaded.  Also the capture of what a sampled round produced, for the
-comparison with the plain reference once the window has closed."""
+block: SWARM's router over the data plane of the cell's ``chips``
+(``TorchPlane`` on one device, or ``ShardedTorchPlane`` over several
+cards), the streaming engine fed by the benchmark's replay source, and
+the standing queries preloaded.  Also the capture of what a sampled
+round produced, for the comparison with the plain reference once the
+window has closed."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,12 +12,34 @@ import numpy as np
 from replay import ReplaySource
 
 
-def build(sysp: dict, traffic, device: str, traced: bool):
-    """The engine of one cell with its standing queries registered."""
+def data_plane(chips: int, device: str):
+    """The cell's data plane: ``TorchPlane`` on one device for one chip;
+    for more, ``ShardedTorchPlane``, SWARM's machine axis over ``chips``
+    shards, one to a card on ``cuda`` (never colocated) and all on the
+    host on ``cpu``."""
+    from repro_torch.streaming import ShardedTorchPlane, TorchPlane
+    if chips > 1:
+        return ShardedTorchPlane(chips, device)
+    return TorchPlane(device)
+
+
+def cards(eng) -> tuple:
+    """The CUDA device indices the engine's data plane runs on, in the
+    order its shards first name them; none on the host."""
+    import torch
+    plane = eng.router.swarm.plane
+    devs = getattr(plane, "shards", (plane.device,))
+    return tuple(dict.fromkeys(
+        torch.cuda.current_device() if d.index is None else d.index
+        for d in devs if d.type == "cuda"))
+
+
+def build(sysp: dict, traffic, device: str, traced: bool, chips: int):
+    """The engine of one cell on its ``chips`` cards, with its standing
+    queries registered."""
     from repro_torch.streaming import (EngineConfig, QueryBatch, QueryModel,
                                        StreamingEngine, SwarmRouter,
-                                       TelemetryConfig, TorchPlane,
-                                       WorkloadSpec)
+                                       TelemetryConfig, WorkloadSpec)
     if sysp["query_model"] == "spatial_keyword":
         wl = WorkloadSpec(query_model=QueryModel.SPATIAL_KEYWORD,
                           term_buckets=int(sysp["term_buckets"]),
@@ -29,7 +53,7 @@ def build(sysp: dict, traffic, device: str, traced: bool):
     router = SwarmRouter(
         int(sysp["grid"]), int(sysp["machines"]), beta=int(sysp["beta"]),
         decay=float(sysp["decay"]), workload=wl,
-        data_plane=TorchPlane(device),
+        data_plane=data_plane(chips, device),
         query_area=float(sysp["query_side"]) ** 2, c0=float(cost["c0"]),
         kappa_probe=float(cost["kappa_probe"]),
         kappa_match=float(cost["kappa_match"]),

@@ -79,11 +79,11 @@ def test_round_at_a_time_equals_one_run(name):
     traffic = stream.generate(cell.traffic, cell.system, 9)
     re = int(cell.system["round_every"])
     n = S.warmup_ticks(traffic.cycle, re) + 5 * re
-    a = S.build(cell.system, traffic, "cpu", False)
+    a = S.build(cell.system, traffic, "cpu", False, cell.chips)
     a.run(S.warmup_ticks(traffic.cycle, re))
     for _ in range(5):
         a.run(re)
-    b = S.build(cell.system, traffic, "cpu", False)
+    b = S.build(cell.system, traffic, "cpu", False, cell.chips)
     b.run(n)
     ma, mb = a.metrics.asarrays(), b.metrics.asarrays()
     assert ma.keys() == mb.keys()
