@@ -45,6 +45,12 @@ every byte that crosses between shards is an explicit copy.
   re-homed query + the store payload) on the sender's device and
   copies it into a buffer allocated on the receiver's (:func:`send`);
   the bytes received equal the billed ``RoundOutcome.migration_bytes``.
+* **Spans** (tracer on).  ``sharded_window_dispatch`` holds
+  ``shard_ingest`` (``tuples``, host → card ``bytes``), per destination
+  ``shard_exchange`` (``shard``, ``bytes`` received from other shards)
+  and ``shard_price`` (its slot counts, pricing and psum copies), then
+  ``shard_scan``; ``reshard_transfers`` (``transfers``, ``bytes``)
+  holds a round's payload copies.  None adds a synchronisation.
 
 On the host, ``get_plane("sharded-cpu")`` or ``data_plane="sharded-cpu"``
 with ``EngineConfig(devices=4)`` runs four shards on the CPU; on one
@@ -54,7 +60,6 @@ against the JAX package.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import NamedTuple
 
@@ -63,7 +68,7 @@ import torch
 
 from ..core import geometry
 from ..launch.mesh import streaming_mesh
-from ..telemetry.tracer import current as _tracer
+from ..telemetry.tracer import _NULL_SPAN, current as _tracer
 from .fused import DeviceState, EngineCarry, FusedHostState, FusedParams
 from .planes import CostParams, TorchPlane, _UploadCache
 
@@ -441,70 +446,87 @@ class ShardedTorchPlane(TorchPlane):
         keyword = kw_stack is not None
         t1 = int(state.qres_kw[0].shape[1]) if keyword else 0
         tr = _tracer()
+        on = tr.enabled
         with (tr.span("sharded_window_dispatch", ticks=w, batch=b,
-                      plane="sharded", devices=d) if tr.enabled
-              else contextlib.nullcontext()):
-            hists, kwh = shard_histograms(xy_stack, g, self.shards,
-                                          cells=cells, kw_stack=kw_stack,
-                                          t1=t1)
+                      plane="sharded", devices=d) if on else _NULL_SPAN):
+            # host → card: 8 B a tuple (an int64 cell id or two float32
+            # coordinates), and 8 B a probe bucket
+            with (tr.span("shard_ingest", tuples=w * b,
+                          bytes=8 * (w * b + (np.size(kw_stack) if t1
+                                              else 0)))
+                  if on else _NULL_SPAN):
+                hists, kwh = shard_histograms(xy_stack, g, self.shards,
+                                              cells=cells, kw_stack=kw_stack,
+                                              t1=t1)
             if keyword:
                 kwh = tuple(h.view(w, g * g, t1) for h in kwh)
             units_wm = tuples_wm = dels_w = None
             rows, cols, sent = [], [], 0
             for j, (route, dev) in enumerate(zip(state.routes, self.shards)):
                 r = self._rep[j]
-                mine, nbytes = self._exchange(hists, route, j)
+                with (tr.span("shard_exchange", shard=j) if on
+                      else _NULL_SPAN) as ex:
+                    mine, nbytes = self._exchange(hists, route, j)
+                    if keyword:
+                        mine_kw, kw_bytes = self._exchange(kwh, route, j)
+                        nbytes += kw_bytes
+                    ex.set(bytes=nbytes)
                 sent += nbytes
-                s = route.pids.shape[0]
-                sp = route.pids.clamp_min(0)
-                own = state.owner[r][sp]
-                own_sm = ((own[:, None] == torch.arange(m, device=dev)[None])
-                          & (route.pids >= 0)[:, None]).to(f32)
-                count_ws = torch.zeros((w, s), dtype=f32, device=dev
-                                       ).index_add_(1, route.slot, mine)
-                sc = self._cost_scalars(cp, self._uploads[self._phys[r]])
-                if keyword:
-                    mine_kw, nbytes = self._exchange(kwh, route, j)
-                    sent += nbytes
-                    cnt_wsb = torch.zeros((w, s, t1), dtype=f32, device=dev
-                                          ).index_add_(1, route.slot, mine_kw)
-                    units_j, dels_j = self._kw_window_body(
-                        count_ws, cnt_wsb, sp, own.clamp_min(0), own_sm,
-                        state.qres_kw[r], state.q_machine[r],
-                        state.area_frac[r], sc)
-                    dels_j = dels_j.to(self.device)
-                    dels_w = dels_j if dels_w is None else dels_w + dels_j
-                else:
-                    cost_s = self._cost_body(
-                        s, sp, own.clamp_min(0), state.qres[r],
-                        state.q_machine[r], state.area_frac[r], sc,
-                        tuple_driven=cp.tuple_driven)
-                    units_j = (count_ws[:, :, None]
-                               * (cost_s[:, None] * own_sm)).sum(1)
-                tuples_j = (count_ws[:, :, None] * own_sm).sum(1)
-                # the psum: shard order, on shard 0's device
-                units_j = units_j.to(self.device)
-                tuples_j = tuples_j.to(self.device)
-                units_wm = units_j if units_wm is None else units_wm + units_j
-                tuples_wm = (tuples_j if tuples_wm is None
-                             else tuples_wm + tuples_j)
-                if fp.track_stats:
-                    # the shard's own cells' row and column counts into
-                    # its own slot bank
-                    hist = mine.sum(0)
-                    size = s * g1
-                    rows.append(state.cn_rows[j] + torch.zeros(
-                        size, dtype=f32, device=dev).index_add_(
-                            0, route.bank_row, hist).view(s, g1))
-                    cols.append(state.cn_cols[j] + torch.zeros(
-                        size, dtype=f32, device=dev).index_add_(
-                            0, route.bank_col, hist).view(s, g1))
-            if dels_w is None:
-                dels_w = torch.zeros(w, dtype=f32, device=self.device)
-            outs, carry_t, ok = self._scan(units_wm, tuples_wm, carry, fp, b)
-            carry, outs, ok = self._download(outs, carry_t, ok, dels_w,
-                                             keyword)
-            if tr.enabled:
+                with (tr.span("shard_price", shard=j) if on
+                      else _NULL_SPAN):
+                    s = route.pids.shape[0]
+                    sp = route.pids.clamp_min(0)
+                    own = state.owner[r][sp]
+                    own_sm = ((own[:, None]
+                               == torch.arange(m, device=dev)[None])
+                              & (route.pids >= 0)[:, None]).to(f32)
+                    count_ws = torch.zeros((w, s), dtype=f32, device=dev
+                                           ).index_add_(1, route.slot, mine)
+                    sc = self._cost_scalars(cp, self._uploads[self._phys[r]])
+                    if keyword:
+                        cnt_wsb = torch.zeros(
+                            (w, s, t1), dtype=f32, device=dev
+                        ).index_add_(1, route.slot, mine_kw)
+                        units_j, dels_j = self._kw_window_body(
+                            count_ws, cnt_wsb, sp, own.clamp_min(0), own_sm,
+                            state.qres_kw[r], state.q_machine[r],
+                            state.area_frac[r], sc)
+                        dels_j = dels_j.to(self.device)
+                        dels_w = dels_j if dels_w is None else dels_w + dels_j
+                    else:
+                        cost_s = self._cost_body(
+                            s, sp, own.clamp_min(0), state.qres[r],
+                            state.q_machine[r], state.area_frac[r], sc,
+                            tuple_driven=cp.tuple_driven)
+                        units_j = (count_ws[:, :, None]
+                                   * (cost_s[:, None] * own_sm)).sum(1)
+                    tuples_j = (count_ws[:, :, None] * own_sm).sum(1)
+                    # the psum: shard order, on shard 0's device
+                    units_j = units_j.to(self.device)
+                    tuples_j = tuples_j.to(self.device)
+                    units_wm = (units_j if units_wm is None
+                                else units_wm + units_j)
+                    tuples_wm = (tuples_j if tuples_wm is None
+                                 else tuples_wm + tuples_j)
+                    if fp.track_stats:
+                        # the shard's own cells' row and column counts
+                        # into its own slot bank
+                        hist = mine.sum(0)
+                        size = s * g1
+                        rows.append(state.cn_rows[j] + torch.zeros(
+                            size, dtype=f32, device=dev).index_add_(
+                                0, route.bank_row, hist).view(s, g1))
+                        cols.append(state.cn_cols[j] + torch.zeros(
+                            size, dtype=f32, device=dev).index_add_(
+                                0, route.bank_col, hist).view(s, g1))
+            with (tr.span("shard_scan") if on else _NULL_SPAN):
+                if dels_w is None:
+                    dels_w = torch.zeros(w, dtype=f32, device=self.device)
+                outs, carry_t, ok = self._scan(units_wm, tuples_wm, carry,
+                                               fp, b)
+                carry, outs, ok = self._download(outs, carry_t, ok, dels_w,
+                                                 keyword)
+            if on:
                 self._fence()
         if fp.track_stats:
             state = state._replace(cn_rows=tuple(rows), cn_cols=tuple(cols))
@@ -513,7 +535,7 @@ class ShardedTorchPlane(TorchPlane):
             self.shard_tuples += binned
             self.exchange_bytes_total += sent
             self.windows += 1
-        if tr.enabled:
+        if on:
             # per-shard ingest tracks: tuples each shard's worker binned
             for k in range(d):
                 tr.counter("shard_tuples", float(binned[k]), machine=k)
@@ -536,45 +558,51 @@ class ShardedTorchPlane(TorchPlane):
         transfers = tuple(getattr(outcome, "transfers", ()) or ())
         if state is None or not transfers:
             return 0
-        home = state.home
-        # the header columns come from the router's plan after the round:
-        # a split in the same round can hand a transfer pids past the
-        # resident state's capacity (the reference reads the state and
-        # raises IndexError there, ROADMAP F8)
-        plan = router.fused_host_state()
-        qres, af = plan.qres, plan.area_frac
-        moved_q = int(getattr(outcome, "moved_queries", 0) or 0)
-        migration = int(getattr(outcome, "migration_bytes", 0) or 0)
-        per_q = BYTES_PER_QUERY
-        data_bytes = migration - per_q * moved_q
-        if data_bytes < 0:      # router bills a different query size
-            per_q, data_bytes = 0, migration
-        moved_by = list(getattr(outcome, "moved_by_transfer", ()) or ())
-        if len(moved_by) != len(transfers) or sum(moved_by) != moved_q:
-            moved_by = [moved_q] + [0] * (len(transfers) - 1)
         tr = _tracer()
-        total = 0
-        for i, (rec, nq) in enumerate(zip(transfers, moved_by)):
-            src = self.shards[int(home[rec.m_h]) % self.devices]
-            dst = self.shards[int(home[rec.m_l]) % self.devices]
-            payload = []
-            if per_q and nq:
-                rows = np.zeros((int(nq), QUERY_ROW_FLOATS), np.float32)
-                pids = np.asarray(rec.new_pids, np.int64)[:int(nq)]
-                rows[:len(pids), 0] = pids
-                rows[:len(pids), 1] = qres[pids]
-                rows[:len(pids), 2] = af[pids]
-                payload.append(rows)
-            if i == 0 and data_bytes:
-                payload.append(np.zeros(int(data_bytes), np.uint8))
-            moved = 0
-            for buf in payload:
-                _, got = send(buf, src, dst)
-                moved += got.numel() * got.element_size()
-            total += moved
-            if tr.enabled and moved:
-                tr.counter("reshard_bytes", float(moved),
-                           machine=int(rec.m_l))
+        with (tr.span("reshard_transfers", transfers=len(transfers))
+              if tr.enabled else _NULL_SPAN) as sp:
+            home = state.home
+            # the header columns come from the router's plan after the
+            # round: a split in the same round can hand a transfer pids
+            # past the resident state's capacity (the reference reads the
+            # state and raises IndexError there, ROADMAP F8)
+            plan = router.fused_host_state()
+            qres, af = plan.qres, plan.area_frac
+            moved_q = int(getattr(outcome, "moved_queries", 0) or 0)
+            migration = int(getattr(outcome, "migration_bytes", 0) or 0)
+            per_q = BYTES_PER_QUERY
+            data_bytes = migration - per_q * moved_q
+            if data_bytes < 0:      # router bills a different query size
+                per_q, data_bytes = 0, migration
+            moved_by = list(getattr(outcome, "moved_by_transfer", ())
+                            or ())
+            if (len(moved_by) != len(transfers)
+                    or sum(moved_by) != moved_q):
+                moved_by = [moved_q] + [0] * (len(transfers) - 1)
+            total = 0
+            for i, (rec, nq) in enumerate(zip(transfers, moved_by)):
+                src = self.shards[int(home[rec.m_h]) % self.devices]
+                dst = self.shards[int(home[rec.m_l]) % self.devices]
+                payload = []
+                if per_q and nq:
+                    rows = np.zeros((int(nq), QUERY_ROW_FLOATS),
+                                    np.float32)
+                    pids = np.asarray(rec.new_pids, np.int64)[:int(nq)]
+                    rows[:len(pids), 0] = pids
+                    rows[:len(pids), 1] = qres[pids]
+                    rows[:len(pids), 2] = af[pids]
+                    payload.append(rows)
+                if i == 0 and data_bytes:
+                    payload.append(np.zeros(int(data_bytes), np.uint8))
+                moved = 0
+                for buf in payload:
+                    _, got = send(buf, src, dst)
+                    moved += got.numel() * got.element_size()
+                total += moved
+                if tr.enabled and moved:
+                    tr.counter("reshard_bytes", float(moved),
+                               machine=int(rec.m_l))
+            sp.set(bytes=total)
         self.reshard_bytes_total += total
         return total
 
