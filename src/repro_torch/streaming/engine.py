@@ -196,7 +196,8 @@ class StreamingEngine:
         self.tracer = (Tracer(tcfg)
                        if tcfg is not None and tcfg.enabled else NOOP)
         self._fused = None   # device-resident state cache (run_fused)
-        self.declined_windows = 0   # fused windows replayed per tick
+        self.declined_windows = 0   # fused windows whose full batch failed
+        self.throttled_windows = 0  # of those, run throttled on the plane
         # geo fault model (DESIGN.md §12): per-pair link latency/jitter
         # and the compiled chaos schedule (carried by the source, like
         # membership timelines).  ``_faults`` gates every new code path
@@ -979,24 +980,42 @@ class StreamingEngine:
                 n_alloc=self._fused["host"].n_alloc)
             carry = EngineCarry(self.queue_units, self.queue_tuples,
                                 self.lam_bp)
-            state, carry, outs, ok = plane.run_window(
-                self._fused["state"], router._cost_params(), fp, carry, xy,
-                kw_stack=kw_stack, cells=cells)
-            if ok:
+            cp = router._cost_params()
+            throttled = getattr(plane, "run_window_throttled", None)
+            # the carry alone throttles the window's first tick: a
+            # full-batch window would decline, so it is not dispatched
+            skipped = (throttled is not None
+                       and int(min(cfg.lambda_max, self.lam_bp)) < b)
+            ok = False
+            if not skipped:
+                state, carry_out, outs, ok = plane.run_window(
+                    self._fused["state"], cp, fp, carry, xy,
+                    kw_stack=kw_stack, cells=cells)
+            if not ok:
+                self.declined_windows += 1
+            if not ok and throttled is not None:
+                # backpressure holds the window below its full batches:
+                # the plane runs the throttled ticks on its device, from
+                # the same carry
+                self.throttled_windows += 1
+                state, carry_out, outs, _ = throttled(
+                    self._fused["state"], cp, fp, carry, xy,
+                    kw_stack=kw_stack, cells=cells)
+            if ok or throttled is not None:
                 self._fused["state"] = state
-                self.queue_units = np.asarray(carry.queue_units, np.float64)
-                self.queue_tuples = np.asarray(carry.queue_tuples,
+                self.queue_units = np.asarray(carry_out.queue_units,
+                                              np.float64)
+                self.queue_tuples = np.asarray(carry_out.queue_tuples,
                                                np.float64)
-                self.lam_bp = float(carry.lam_bp)
+                self.lam_bp = float(carry_out.lam_bp)
                 # store-keeping workloads: the fused step priced the
                 # batches but did not deposit them — replay counts into
                 # the host-side store (+ per-tick retention decay)
                 resid = self._replay_store(xy, outs.injected)
             else:
-                # backpressure engaged mid-window: the fused window
-                # cannot represent throttled injection — replay the
-                # staged batches through the exact per-tick path
-                self.declined_windows += 1
+                # backpressure engaged mid-window on a plane without a
+                # throttled window: replay the staged batches through
+                # the exact per-tick path
                 with (tr.span("window_replay") if tr.enabled
                       else _NULL_SPAN):
                     outs, resid = self._window_reference(xy, kw_stack)
@@ -1006,6 +1025,8 @@ class StreamingEngine:
             self._advance_heartbeats(w)
             if win_span is not None:
                 win_span.set(ok=bool(ok), declined=self.declined_windows,
+                             throttled=self.throttled_windows,
+                             skipped=skipped,
                              throughput=float(outs.throughput.sum()))
                 win_span.__exit__(None, None, None)
                 self._fused_tick_telemetry(t, w, w0, tr.now(), outs)
@@ -1104,7 +1125,8 @@ class StreamingEngine:
         ``Router.ingest`` (collectors accumulate host-side, stores
         deposit as usual) and run the shared tick dynamics + per-tick
         persistence upkeep.  Used when a fused window declines
-        (``ok=False``) — the congested regime keeps exact semantics.
+        (``ok=False``) on a plane without ``run_window_throttled`` — the
+        congested regime keeps exact semantics.
         Returns ``(FusedOutputs, resident-tuples per tick)``."""
         cfg = self.cfg
         w = len(xy_stack)

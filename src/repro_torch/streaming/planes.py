@@ -247,6 +247,12 @@ class DataPlane:
     # these, keeping the reference planes' call shape unchanged
     wants_cells: bool = False
 
+    # a plane that can run a window under backpressure on its device
+    # defines ``run_window_throttled`` (``run_window``'s arguments, the
+    # same four results, ``ok`` always True); the engine then runs there
+    # the windows ``run_window`` declines, in place of the host replay
+    run_window_throttled = None
+
     def collector_banks(self, state: DeviceState):
         """The N′ collector banks as host ``(cn_rows, cn_cols)`` float64
         arrays of shape (P, G+1), ready for ``Swarm.absorb_collectors``.
@@ -884,14 +890,17 @@ class TorchPlane(DataPlane):
         return state, out
 
     @staticmethod
-    def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    def _counts(idx: torch.Tensor, n: int, keep=None) -> torch.Tensor:
         """Exact histogram of ``idx`` over ``n`` bins as float32, on
-        ``idx``'s device: a scatter-add of ones (integer partial sums
-        stay exact below 2²⁴ in any order, and no host sync is needed,
-        unlike ``torch.bincount`` on the card)."""
+        ``idx``'s device: a scatter-add of ones — of ``keep`` (0/1
+        float32, ``idx``'s shape) where given (integer partial sums stay
+        exact below 2²⁴ in any order, and no host sync is needed, unlike
+        ``torch.bincount`` on the card)."""
         out = torch.zeros(n, dtype=torch.float32, device=idx.device)
-        return out.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float32,
-                                                 device=idx.device))
+        if keep is None:
+            keep = torch.ones(idx.shape, dtype=torch.float32,
+                              device=idx.device)
+        return out.index_add_(0, idx, keep)
 
     def run_window(self, state: DeviceState, cp: CostParams,
                    fp: FusedParams, carry: EngineCarry, xy_stack,
@@ -912,9 +921,10 @@ class TorchPlane(DataPlane):
         The counts assume *full* staged batches, so the window is valid
         only while backpressure stays idle; ``ok`` is False as soon as
         the throttled injection drops below the batch, and the caller
-        then discards every returned value and replays the window
-        through the reference path.  The input ``state`` is therefore
-        never mutated: the new collector banks are fresh tensors."""
+        then discards every returned value and runs the window again
+        through :meth:`run_window_throttled`.  The input ``state`` is
+        therefore never mutated: the new collector banks are fresh
+        tensors."""
         f32 = torch.float32
         dev = self.device
         w, b = xy_stack.shape[:2]
@@ -973,6 +983,129 @@ class TorchPlane(DataPlane):
             carry, outs, ok = self._download(outs, carry_t, ok, dels_w,
                                              keyword)
         return state, carry, outs, ok
+
+    def run_window_throttled(self, state: DeviceState, cp: CostParams,
+                             fp: FusedParams, carry: EngineCarry, xy_stack,
+                             kw_stack=None, cells=None):
+        """The window of :meth:`run_window` under backpressure, on the
+        device: tick i injects the first ``n_i = ⌊min(λmax, λ_i)⌋`` tuples
+        of its staged batch, as the engine's per-tick replay does.
+
+        ``n_i`` depends on the carry alone, and every per-tuple quantity
+        on the tuple's partition, so tick i's whole effect is the
+        partition count of its first ``n_i`` tuples: a count masked by
+        ``arange(B) < n_i`` inside the loop over the ticks, with no host
+        sync.  The queues and λ run in float64, the arithmetic of
+        ``fused.host_process_tick``; the per-partition costs stay float32,
+        the values the per-tick path prices each tuple at.  Keyword
+        workloads price each tuple as the per-tick path does (its cost
+        also depends on its term buckets) and sum the masked costs by
+        owner.  The N′ collector deltas are one masked count over the
+        window after the loop.  One device→host transfer at the end;
+        ``outs.injected`` holds the ``n_i``.  Returns ``(state, carry,
+        outs, True)``; the input ``state`` is never mutated."""
+        f32, f64 = torch.float32, torch.float64
+        dev = self.device
+        w, b = xy_stack.shape[:2]
+        g = state.grid.shape[0]
+        m = len(fp.alive)
+        p_cap = state.owner.shape[0]
+        p_used = min(fp.n_alloc, p_cap) if fp.n_alloc else p_cap
+        keyword = kw_stack is not None
+        tr = _tracer()
+        with (tr.span("throttled_window_dispatch", ticks=w, batch=b)
+              if tr.enabled else contextlib.nullcontext()):
+            row, col = geometry.points_to_cells(self._batch(xy_stack), g)
+            row, col = row.long(), col.long()
+            pids = state.grid[row, col]                          # (W, B)
+            machines = torch.arange(m, device=dev)
+            sc = self._cost_scalars(cp)
+            if keyword:
+                t1 = state.qres_kw.shape[1]
+                ids = self._batch(kw_stack, np.int64).reshape(w * b, -1)
+                valid = (ids >= 0) & (ids < t1)
+                # ``queries.keywords.bucket_onehot`` on the device: a set
+                # per tuple, so a repeated bucket counts once
+                onehot = torch.zeros((w * b, t1), dtype=f32, device=dev)
+                onehot.scatter_reduce_(1, torch.where(valid, ids, 0),
+                                       valid.to(f32), reduce="amax")
+                owners = state.owner[pids]
+                costs, dels = self._kw_cost_body(
+                    pids.reshape(-1), owners.reshape(-1), state.qres_kw,
+                    onehot, state.q_machine, state.area_frac, sc)
+                costs, dels = (costs.view(w, b).to(f64),
+                               dels.view(w, b).to(f64))
+            else:
+                owner_u = state.owner[:p_used]
+                owner_m = (owner_u[:, None] == machines[None, :]).to(f64)
+                cost_p = self._cost_body(
+                    p_used, torch.arange(p_used, device=dev),
+                    owner_u.clamp_min(0), state.qres, state.q_machine,
+                    state.area_frac, sc, tuple_driven=cp.tuple_driven)
+                # (P, 2M): each partition's cost and its one tuple, by owner
+                load_m = torch.cat([cost_p.to(f64)[:, None] * owner_m,
+                                    owner_m], 1)
+            lambda_max = float(fp.lambda_max)
+            high = fp.bp_high * fp.cap_units
+            lam_up = fp.bp_inc * fp.lambda_max
+            util_div = max(fp.cap_units, 1e-9)
+            cap = self._batch(fp.cap_units * np.asarray(fp.alive, np.float64),
+                              np.float64)
+            cap_pos, cap_div = cap > 0, cap.clamp_min(1e-9)
+            qu = self._batch(carry.queue_units, np.float64)
+            qt = self._batch(carry.queue_tuples, np.float64)
+            lam = torch.tensor(float(carry.lam_bp), dtype=f64, device=dev)
+            slot = torch.arange(b, device=dev)
+            rows, inj, dels_w = [], [], []
+            for i in range(w):
+                n = torch.floor(lam.clamp_max(lambda_max))
+                keep = slot < n                                  # (B,)
+                if keyword:
+                    k64 = keep.to(f64)
+                    own = (owners[i][:, None] == machines[None, :]).to(f64)
+                    qu = qu + ((costs[i] * k64)[:, None] * own).sum(0)
+                    qt = qt + (k64[:, None] * own).sum(0)
+                    dels_w.append((dels[i] * k64).sum())
+                else:
+                    cnt = self._counts(pids[i], p_used,
+                                       keep.to(f32)).to(f64)
+                    load = (cnt[:, None] * load_m).sum(0)
+                    qu, qt = qu + load[:m], qt + load[m:]
+                # fused.host_process_tick, on the device
+                pu = torch.minimum(qu, cap)
+                avg = torch.where(qt > 0, qu / qt.clamp_min(1e-9), 1.0)
+                pt = torch.minimum(pu / avg.clamp_min(1e-9), qt)
+                qu = qu - pt * avg
+                qt = qt - pt
+                delay = torch.where(cap_pos, qu / cap_div + avg / cap_div,
+                                    0.0)
+                done = pt.sum()
+                latency = torch.where(done > 0, (delay * pt).sum() / done,
+                                      0.0)
+                lam = torch.where((qu > high).any(),
+                                  (lam * fp.bp_dec).clamp_min(1.0),
+                                  (lam + lam_up).clamp_max(lambda_max))
+                rows.append(torch.cat([torch.stack([done, latency, n]),
+                                       pu / util_div]))
+                inj.append(n)
+            if fp.track_stats:
+                g1 = g + 1
+                keep = (slot[None, :] < torch.stack(inj)[:, None]).reshape(
+                    -1).to(f32)
+                flat_p = pids.reshape(-1) * g1
+                state = state._replace(
+                    cn_rows=state.cn_rows + self._counts(
+                        flat_p + row.reshape(-1), p_cap * g1,
+                        keep).view(p_cap, g1),
+                    cn_cols=state.cn_cols + self._counts(
+                        flat_p + col.reshape(-1), p_cap * g1,
+                        keep).view(p_cap, g1))
+            carry, outs, _ = self._download(
+                torch.stack(rows), torch.cat([qu, qt, lam[None]]),
+                torch.ones((), dtype=torch.bool, device=dev),
+                torch.stack(dels_w) if keyword else torch.zeros(
+                    w, dtype=f64, device=dev), keyword)
+        return state, carry, outs, True
 
     def _kw_window_body(self, count, cnt_b, pids, owners, owner_m, qres_kw,
                         q_machine, area_frac, sc):

@@ -284,6 +284,9 @@ class ShardedTorchPlane(TorchPlane):
 
     name = "sharded"
     wants_cells = True
+    # the state is sharded over the cards: a declined window is replayed
+    # per tick on the host, as on the reference planes
+    run_window_throttled = None
 
     def __init__(self, devices: int | None = None, device="cuda", *,
                  colocate: bool = False):

@@ -2,12 +2,14 @@
 stack, with a zero-overhead disabled path.
 
 Span taxonomy (DESIGN.md §9): the control-plane timeline carries
-``tick``, ``fused_window`` (args ``ok`` and a running ``declined``
-count; children ``window_stage``, ``state_refresh``,
-``fused_window_dispatch`` from the data plane, ``window_replay`` on a
-declined window), ``collectors_drain`` (``bytes``), ``query_reindex``
-(``queries``, ``live``, ``pairs``, ``hits``, ``chunks``) →
-``reindex_cells`` / ``reindex_overlap`` / ``reindex_pivots``,
+``tick``, ``fused_window`` (args ``ok``, running ``declined`` and
+``throttled`` counts, ``skipped``; children ``window_stage``,
+``state_refresh``, ``fused_window_dispatch`` from the data plane unless
+skipped, on a declined window ``throttled_window_dispatch`` from a plane
+that has it, else ``window_replay``), ``collectors_drain``
+(``bytes``), ``query_reindex`` (``queries``, ``live``, ``pairs``,
+``hits``, ``chunks``) → ``reindex_cells`` / ``reindex_overlap`` /
+``reindex_pivots``,
 ``round_close`` → ``stats_close`` / ``plan_round`` / ``apply_plan``,
 ``failover`` and ``heartbeat_scan`` spans plus instants for FSM
 transitions, rebalances, membership events, heartbeat misses and the

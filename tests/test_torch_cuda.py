@@ -243,6 +243,66 @@ def test_declined_window_leaves_the_state_untouched(cuda_device):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("lam", [1200.0, 2000.0])
+@pytest.mark.parametrize("keyword", [False, True])
+def test_throttled_window_equals_the_per_tick_replay(cuda_device, keyword,
+                                                     lam):
+    """``run_window_throttled`` on the card against the engine's per-tick
+    replay of the same eight staged batches from the same carry (throttled
+    from the first tick, or from the second): the same injected counts
+    and N′ collector deltas, count for count; the metrics and the carry
+    within 1e-9."""
+    if keyword:
+        wl = T.WorkloadSpec(query_model="spatial_keyword", term_buckets=8)
+        scen = T.ScenarioSpec("hot_hashtags", ticks=24, preload_queries=2000,
+                              query_burst=100, hot_terms=2, term_peak=0.4)
+    else:
+        wl = T.WorkloadSpec()
+        scen = T.ScenarioSpec("uniform_normal", ticks=24,
+                              preload_queries=2000, query_burst=200,
+                              peak=0.6)
+    cfg = T.EngineConfig(num_machines=8, cap_units=4e3, lambda_max=2000,
+                         mem_queries=10**8, round_every=2)
+    router = T.RouterSpec("swarm", beta=2).build(
+        num_machines=8, workload=wl, data_plane=T.TorchPlane("cuda"))
+    eng = T.StreamingEngine(router, scen.build(seed=0, workload=wl), cfg)
+    router.ingest(eng.stream.preload(scen.preload_queries))
+    eng.run(4)
+    eng.lam_bp = lam
+    batches = [eng.stream.tuples(2000, eng.tick_no + i) for i in range(8)]
+    xy = np.stack([bt.xy for bt in batches])
+    kw = np.stack([bt.buckets for bt in batches]) if keyword else None
+    host = router.fused_host_state()
+    fp = T.FusedParams(cap_units=cfg.cap_units, lambda_max=cfg.lambda_max,
+                       bp_high=cfg.bp_high, bp_dec=cfg.bp_dec,
+                       bp_inc=cfg.bp_inc, alive=eng._eff_alive(),
+                       track_stats=True, n_alloc=host.n_alloc)
+    carry = T.EngineCarry(eng.queue_units.copy(), eng.queue_tuples.copy(),
+                          eng.lam_bp)
+    state = router.plane.make_state(host)
+    new, got_carry, got, ok = router.plane.run_window_throttled(
+        state, router._cost_params(), fp, carry, xy, kw_stack=kw)
+    assert ok
+    stats = router.swarm.stats
+    n0 = (stats.rows[S.C_N].copy(), stats.cols[S.C_N].copy())
+    want, _ = eng._window_reference(xy, kw)
+    np.testing.assert_array_equal(got.injected, want.injected)
+    assert want.injected[-1] < 2000
+    p = new.cn_rows.shape[0]
+    for dev, bank, start in ((new.cn_rows, stats.rows, n0[0]),
+                             (new.cn_cols, stats.cols, n0[1])):
+        np.testing.assert_array_equal(dev.cpu().numpy(),
+                                      (bank[S.C_N] - start)[:p])
+    names = ("throughput", "latency", "utilization") + (
+        ("deliveries",) if keyword else ())
+    for name, a, b in [(n, getattr(got, n), getattr(want, n)) for n in names
+                       ] + [("queue_units", got_carry.queue_units,
+                             eng.queue_units),
+                            ("queue_tuples", got_carry.queue_tuples,
+                             eng.queue_tuples)]:
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=0, err_msg=name)
+
+
 # tests/test_sharded.py's timelines, built from either package (the
 # port's, or the JAX package's in tests/test_torch_sharded.py, which
 # imports these helpers): low capacity so backpressure engages, rounds

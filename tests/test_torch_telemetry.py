@@ -1,7 +1,8 @@
 """The port's tracer inside a SWARM round, on the CPU (``TorchPlane("cpu")``):
 the query re-index's spans and counts (``query_reindex`` →
 ``reindex_cells`` / ``reindex_overlap`` / ``reindex_pivots``), the fused
-window's children (``window_stage``, ``state_refresh``, ``window_replay``)
+window's children (``window_stage``, ``state_refresh``,
+``throttled_window_dispatch``)
 and the collector drain, their nesting under ``tick`` and under a
 wrapper span around the re-index, the disabled tracer's silence, same-seed
 signatures, and the ``torch.profiler`` capture's anchors."""
@@ -26,7 +27,7 @@ M = 8
 MIXED_CAP = {False: 1e4, True: 5e3}
 NEW_SPANS = ("query_reindex", "reindex_cells", "reindex_overlap",
              "reindex_pivots", "window_stage", "state_refresh",
-             "window_replay", "collectors_drain")
+             "throttled_window_dispatch", "collectors_drain")
 
 
 def _engine(*, keyword=False, window=0, cap=1e9, traced=True, seed=0,
@@ -157,11 +158,18 @@ def test_fused_window_children(keyword):
     ok = [e.args["ok"] for e in sorted(wins, key=lambda e: e.seq)]
     counts = [e.args["declined"] for e in sorted(wins, key=lambda e: e.seq)]
     assert counts == np.cumsum([not o for o in ok]).tolist()
+    assert [e.args["throttled"] for e in sorted(wins, key=lambda e: e.seq)
+            ] == counts
+    assert eng.throttled_windows == len(declined)
     for w in wins:
         assert len(_children(tr, w, "window_stage")) == 1
         assert len(_children(tr, w, "state_refresh")) == 1
-        assert len(_children(tr, w, "fused_window_dispatch")) == 1
-        assert len(_children(tr, w, "window_replay")) == (not w.args["ok"])
+        # one full-batch dispatch unless the carry throttled tick 0
+        assert len(_children(tr, w, "fused_window_dispatch")) == (
+            not w.args["skipped"])
+        assert len(_children(tr, w, "throttled_window_dispatch")) == (
+            not w.args["ok"])
+        assert not _children(tr, w, "window_replay")
     drains = _spans(tr, "collectors_drain")
     assert drains
     assert all(e.args["bytes"] > 0 for e in drains)
