@@ -64,28 +64,11 @@ class SanitizingPlane:
                    cells=None):
         state, carry, outs, ok = self._inner.run_window(
             state, cp, fp, carry, xy_stack, kw_stack=kw_stack, cells=cells)
-        if ok and fp.track_stats:
-            # a declined window (ok=False) is discarded by the engine
-            # and replayed host-side — its deposits never commit
+        if fp.track_stats:
+            # the plane runs every window exactly, throttled (ok=False)
+            # or not, and the engine keeps each one
             self._deposited += float(np.asarray(outs.injected).sum())
         return state, carry, outs, ok
-
-    @property
-    def run_window_throttled(self):
-        """The inner plane's throttled window, counting its deposits
-        (the engine keeps every window it runs); None where the plane
-        has none."""
-        inner = getattr(self._inner, "run_window_throttled", None)
-        if inner is None:
-            return None
-
-        def run(state, cp, fp, carry, xy_stack, kw_stack=None, cells=None):
-            out = inner(state, cp, fp, carry, xy_stack, kw_stack=kw_stack,
-                        cells=cells)
-            if fp.track_stats:
-                self._deposited += float(np.asarray(out[2].injected).sum())
-            return out
-        return run
 
     # -- law checks at the drain / reshard boundaries ------------------
     def collector_banks(self, state):

@@ -58,7 +58,7 @@ from ..telemetry import NOOP, TelemetryConfig, Tracer, activate
 from ..telemetry.tracer import _NULL_SPAN
 from .api import (NO_ROUND, EventStream, MachineFailure, MachineJoin,
                   MachineSlow, MembershipChange, ProbeBatch, QueryBatch,
-                  Router, RoundOutcome, RoutingDecision, TupleBatch)
+                  Router, RoundOutcome, RoutingDecision)
 from .fused import (EngineCarry, FusedOutputs, FusedParams,
                     host_process_tick)
 from .sources import ScenarioSource
@@ -197,7 +197,6 @@ class StreamingEngine:
                        if tcfg is not None and tcfg.enabled else NOOP)
         self._fused = None   # device-resident state cache (run_fused)
         self.declined_windows = 0   # fused windows whose full batch failed
-        self.throttled_windows = 0  # of those, run throttled on the plane
         # geo fault model (DESIGN.md §12): per-pair link latency/jitter
         # and the compiled chaos schedule (carried by the source, like
         # membership timelines).  ``_faults`` gates every new code path
@@ -981,52 +980,29 @@ class StreamingEngine:
             carry = EngineCarry(self.queue_units, self.queue_tuples,
                                 self.lam_bp)
             cp = router._cost_params()
-            throttled = getattr(plane, "run_window_throttled", None)
-            # the carry alone throttles the window's first tick: a
-            # full-batch window would decline, so it is not dispatched
-            skipped = (throttled is not None
-                       and int(min(cfg.lambda_max, self.lam_bp)) < b)
-            ok = False
-            if not skipped:
-                state, carry_out, outs, ok = plane.run_window(
-                    self._fused["state"], cp, fp, carry, xy,
-                    kw_stack=kw_stack, cells=cells)
-            if not ok:
-                self.declined_windows += 1
-            if not ok and throttled is not None:
-                # backpressure holds the window below its full batches:
-                # the plane runs the throttled ticks on its device, from
-                # the same carry
-                self.throttled_windows += 1
-                state, carry_out, outs, _ = throttled(
-                    self._fused["state"], cp, fp, carry, xy,
-                    kw_stack=kw_stack, cells=cells)
-            if ok or throttled is not None:
-                self._fused["state"] = state
-                self.queue_units = np.asarray(carry_out.queue_units,
-                                              np.float64)
-                self.queue_tuples = np.asarray(carry_out.queue_tuples,
-                                               np.float64)
-                self.lam_bp = float(carry_out.lam_bp)
-                # store-keeping workloads: the fused step priced the
-                # batches but did not deposit them — replay counts into
-                # the host-side store (+ per-tick retention decay)
-                resid = self._replay_store(xy, outs.injected)
-            else:
-                # backpressure engaged mid-window on a plane without a
-                # throttled window: replay the staged batches through
-                # the exact per-tick path
-                with (tr.span("window_replay") if tr.enabled
-                      else _NULL_SPAN):
-                    outs, resid = self._window_reference(xy, kw_stack)
+            # the plane runs the window exactly, throttled or not
+            state, carry_out, outs, ok = plane.run_window(
+                self._fused["state"], cp, fp, carry, xy,
+                kw_stack=kw_stack, cells=cells)
+            self.declined_windows += not ok
+            self._fused["state"] = state
+            self.queue_units = np.asarray(carry_out.queue_units, np.float64)
+            self.queue_tuples = np.asarray(carry_out.queue_tuples,
+                                           np.float64)
+            self.lam_bp = float(carry_out.lam_bp)
+            # store-keeping workloads: the fused step priced the batches
+            # but did not deposit them — replay counts into the host-side
+            # store (+ per-tick retention decay)
+            resid = self._replay_store(xy, outs.injected)
             # heartbeats advance through the window (membership is
             # constant inside one: boundaries are cut at every
             # scheduled event and detection tick)
             self._advance_heartbeats(w)
             if win_span is not None:
+                # skipped: the carry throttled tick 0, so the plane
+                # dispatched no full-batch body
                 win_span.set(ok=bool(ok), declined=self.declined_windows,
-                             throttled=self.throttled_windows,
-                             skipped=skipped,
+                             skipped=bool(not ok and outs.injected[0] < b),
                              throughput=float(outs.throughput.sum()))
                 win_span.__exit__(None, None, None)
                 self._fused_tick_telemetry(t, w, w0, tr.now(), outs)
@@ -1118,44 +1094,6 @@ class StreamingEngine:
                        tick=t + i, t0=s1)
             tr.counter("injected", int(outs.injected[i]),
                        tick=t + i, t0=s1)
-
-    def _window_reference(self, xy_stack, kw_stack=None):
-        """Replay a staged window through the per-tick path: inject the
-        dynamic backpressure-throttled prefix of each staged batch via
-        ``Router.ingest`` (collectors accumulate host-side, stores
-        deposit as usual) and run the shared tick dynamics + per-tick
-        persistence upkeep.  Used when a fused window declines
-        (``ok=False``) on a plane without ``run_window_throttled`` — the
-        congested regime keeps exact semantics.
-        Returns ``(FusedOutputs, resident-tuples per tick)``."""
-        cfg = self.cfg
-        w = len(xy_stack)
-        m = len(self.queue_units)
-        thr, lat = np.zeros(w), np.zeros(w)
-        util = np.zeros((w, m))
-        inj = np.zeros(w, np.int64)
-        resid = np.zeros(w)
-        dels = np.zeros(w) if kw_stack is not None else None
-        for i in range(w):
-            resid[i] = float(self.router.memory_usage()
-                             .tuples.max(initial=0))
-            n = int(min(cfg.lambda_max, self.lam_bp))
-            if n > 0:
-                decision = self.router.ingest(TupleBatch(
-                    xy_stack[i, :n], self.tick_no + i,
-                    buckets=(None if kw_stack is None
-                             else kw_stack[i, :n])))
-                self._enqueue(decision)
-                if dels is not None and decision.deliveries is not None:
-                    dels[i] = float(decision.deliveries.sum())
-            pu, thr[i], lat[i], self.lam_bp = host_process_tick(
-                self.queue_units, self.queue_tuples, self.lam_bp,
-                cfg.cap_units, self._eff_alive(), cfg.bp_high, cfg.bp_dec,
-                cfg.bp_inc, cfg.lambda_max)
-            util[i] = pu / np.maximum(cfg.cap_units, 1e-9)
-            inj[i] = n
-            self.router.end_tick()
-        return FusedOutputs(thr, lat, util, inj, dels), resid
 
     def _replay_store(self, xy_stack, injected) -> np.ndarray:
         """Post-window store replay for store-keeping workloads: route

@@ -51,7 +51,6 @@ and times its kernel (``PERF.md``).
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -61,7 +60,7 @@ import torch
 
 from ..core import geometry, planner
 from ..core import statistics as S
-from ..telemetry.tracer import current as _tracer
+from ..telemetry.tracer import _NULL_SPAN, current as _tracer
 from .fused import (DeviceState, EngineCarry, FusedHostState, FusedOutputs,
                     FusedParams, host_process_tick)
 
@@ -235,23 +234,18 @@ class DataPlane:
         the window's tick dynamics through that one per-window array,
         while plan changes from recovery/rebalancing arrive as
         ``scatter_update`` patches of the resident state.  Returns
-        ``(state, carry, FusedOutputs, ok)``; ``ok`` is False when the
-        window cannot represent the tick dynamics exactly (the torch
-        plane's histogram factoring assumes backpressure stays idle) —
-        the caller must then discard all four values and replay the
-        staged batches through the per-tick reference path."""
+        ``(state, carry, FusedOutputs, ok)``: the exact window, whether
+        or not backpressure throttles it, so the caller keeps all four.
+        ``ok`` False means the torch planes' full-batch body did not
+        hold (a tick injected less than its staged batch) and the plane
+        ran the window throttled; the reference plane has one body and
+        returns True.  The input ``state`` is never mutated."""
         raise NotImplementedError
 
     # set by planes whose ``run_window`` consumes precomputed ingest
     # cell ids (the sharded plane); the engine stages ``cells`` only for
     # these, keeping the reference planes' call shape unchanged
     wants_cells: bool = False
-
-    # a plane that can run a window under backpressure on its device
-    # defines ``run_window_throttled`` (``run_window``'s arguments, the
-    # same four results, ``ok`` always True); the engine then runs there
-    # the windows ``run_window`` declines, in place of the host replay
-    run_window_throttled = None
 
     def collector_banks(self, state: DeviceState):
         """The N′ collector banks as host ``(cn_rows, cn_cols)`` float64
@@ -776,7 +770,7 @@ class TorchPlane(DataPlane):
             return
         tr = _tracer()
         with (tr.span("stats_close", live=len(live)) if tr.enabled
-              else contextlib.nullcontext()):
+              else _NULL_SPAN):
             if self.device.type == "cuda":
                 rows, cols = self._page_locked(stats)
                 SU.close_live(rows, cols, live, decay, self.device)
@@ -905,8 +899,27 @@ class TorchPlane(DataPlane):
     def run_window(self, state: DeviceState, cp: CostParams,
                    fp: FusedParams, carry: EngineCarry, xy_stack,
                    kw_stack=None, cells=None):
-        """One window of ``W`` engine ticks, factored through per-tick
-        partition counts (the JAX plane's ``_window_fn``).
+        """One window of ``W`` engine ticks, exact under backpressure.
+
+        A carry that throttles tick 0 runs :meth:`_throttled_window`
+        alone.  Otherwise :meth:`_full_window` runs, and where
+        backpressure engages inside the window (its ``ok`` False) the
+        throttled body runs the window again from the same carry.
+        Returns ``(state, carry, outs, ok)``, ``ok`` True where the full
+        batch held."""
+        args = (state, cp, fp, carry, xy_stack, kw_stack, cells)
+        if int(min(fp.lambda_max, carry.lam_bp)) >= np.shape(xy_stack)[1]:
+            held = self._full_window(*args)
+            if held[3]:
+                return held
+        return self._throttled_window(*args)
+
+    def _full_window(self, state: DeviceState, cp: CostParams,
+                     fp: FusedParams, carry: EngineCarry, xy_stack,
+                     kw_stack=None, cells=None):
+        """The window with every tick's full staged batch, factored
+        through per-tick partition counts (the JAX plane's
+        ``_window_fn``).
 
         Every per-tuple quantity of the fused tick is a function of the
         tuple's partition alone, so each tick's whole effect is its
@@ -920,11 +933,10 @@ class TorchPlane(DataPlane):
 
         The counts assume *full* staged batches, so the window is valid
         only while backpressure stays idle; ``ok`` is False as soon as
-        the throttled injection drops below the batch, and the caller
-        then discards every returned value and runs the window again
-        through :meth:`run_window_throttled`.  The input ``state`` is
-        therefore never mutated: the new collector banks are fresh
-        tensors."""
+        the throttled injection drops below the batch, and
+        :meth:`run_window` then discards every returned value.  The
+        input ``state`` is therefore never mutated: the new collector
+        banks are fresh tensors."""
         f32 = torch.float32
         dev = self.device
         w, b = xy_stack.shape[:2]
@@ -936,7 +948,7 @@ class TorchPlane(DataPlane):
         tr = _tracer()
         with (tr.span("fused_window_dispatch", ticks=w, batch=b,
                       plane="torch") if tr.enabled
-              else contextlib.nullcontext()):
+              else _NULL_SPAN):
             row, col = geometry.points_to_cells(self._batch(xy_stack), g)
             row, col = row.long(), col.long()
             pids = state.grid[row, col]                          # (W, B)
@@ -984,12 +996,12 @@ class TorchPlane(DataPlane):
                                              keyword)
         return state, carry, outs, ok
 
-    def run_window_throttled(self, state: DeviceState, cp: CostParams,
-                             fp: FusedParams, carry: EngineCarry, xy_stack,
-                             kw_stack=None, cells=None):
-        """The window of :meth:`run_window` under backpressure, on the
-        device: tick i injects the first ``n_i = ⌊min(λmax, λ_i)⌋`` tuples
-        of its staged batch, as the engine's per-tick replay does.
+    def _throttled_window(self, state: DeviceState, cp: CostParams,
+                          fp: FusedParams, carry: EngineCarry, xy_stack,
+                          kw_stack=None, cells=None):
+        """The window under backpressure, on the device: tick i injects
+        the first ``n_i = ⌊min(λmax, λ_i)⌋`` tuples of its staged batch,
+        as the per-tick loop does.
 
         ``n_i`` depends on the carry alone, and every per-tuple quantity
         on the tuple's partition, so tick i's whole effect is the
@@ -1003,7 +1015,7 @@ class TorchPlane(DataPlane):
         owner.  The N′ collector deltas are one masked count over the
         window after the loop.  One device→host transfer at the end;
         ``outs.injected`` holds the ``n_i``.  Returns ``(state, carry,
-        outs, True)``; the input ``state`` is never mutated."""
+        outs, False)``; the input ``state`` is never mutated."""
         f32, f64 = torch.float32, torch.float64
         dev = self.device
         w, b = xy_stack.shape[:2]
@@ -1014,7 +1026,7 @@ class TorchPlane(DataPlane):
         keyword = kw_stack is not None
         tr = _tracer()
         with (tr.span("throttled_window_dispatch", ticks=w, batch=b)
-              if tr.enabled else contextlib.nullcontext()):
+              if tr.enabled else _NULL_SPAN):
             row, col = geometry.points_to_cells(self._batch(xy_stack), g)
             row, col = row.long(), col.long()
             pids = state.grid[row, col]                          # (W, B)
@@ -1105,7 +1117,7 @@ class TorchPlane(DataPlane):
                 torch.ones((), dtype=torch.bool, device=dev),
                 torch.stack(dels_w) if keyword else torch.zeros(
                     w, dtype=f64, device=dev), keyword)
-        return state, carry, outs, True
+        return state, carry, outs, False
 
     def _kw_window_body(self, count, cnt_b, pids, owners, owner_m, qres_kw,
                         q_machine, area_frac, sc):

@@ -38,6 +38,9 @@ every byte that crosses between shards is an explicit copy.
   ``TorchPlane._scan`` runs once there (the reference runs it on every
   shard, on the same inputs).  The carry is uploaded each window, so no
   cache can replay a stale queue state.
+* **A throttled window** (backpressure engaged) runs
+  ``TorchPlane._throttled_window`` on shard 0's replicas, its collector
+  delta folded into the owning shards' slot banks.
 * **Round close** is inherited: K1 on shard 0's device over the banks
   :meth:`ShardedTorchPlane.collector_banks` unscatters.
 * **Transfers move real bytes.**  :meth:`ShardedTorchPlane.
@@ -284,9 +287,6 @@ class ShardedTorchPlane(TorchPlane):
 
     name = "sharded"
     wants_cells = True
-    # the state is sharded over the cards: a declined window is replayed
-    # per tick on the host, as on the reference planes
-    run_window_throttled = None
 
     def __init__(self, devices: int | None = None, device="cuda", *,
                  colocate: bool = False):
@@ -297,10 +297,10 @@ class ShardedTorchPlane(TorchPlane):
         self._uploads = {p: (self._upload if p == self.device
                              else _UploadCache(p)) for p in self._phys}
         # running totals: bytes moved by reshard_transfers (held equal
-        # to the billed migration bytes), and over the accepted windows
-        # (``ok``; a declined window is replayed per tick) the bytes the
-        # exchange sent between shards, the windows and the tuples each
-        # shard binned
+        # to the billed migration bytes), and over the windows whose
+        # full batch held (``ok``; a throttled window runs on shard 0)
+        # the bytes the exchange sent between shards, the windows and
+        # the tuples each shard binned
         self.reshard_bytes_total = 0
         self.exchange_bytes_total = 0
         self.windows = 0
@@ -390,6 +390,15 @@ class ShardedTorchPlane(TorchPlane):
              track_stats: bool = False, query_batch=None, kw=None):
         """``TorchPlane.step`` on shard 0's replicas, its collector delta
         then folded into the owning shards' slot banks."""
+        return self._on_shard0(
+            state, track_stats, lambda tmp: TorchPlane.step(
+                self, tmp, cp, xy, track_stats, query_batch, kw))
+
+    def _on_shard0(self, state: ShardedState, track_stats: bool, body):
+        """``body`` on shard 0's replicas as one device's state, with
+        zeroed collector banks where ``track_stats``, the banks' delta
+        then folded into the owning shards' slot banks.  Returns
+        ``(state, *body's other results)``."""
         p, g1 = state.owner[0].shape[0], state.cn_rows[0].shape[1]
         zeros = (torch.zeros((p, g1), dtype=torch.float32,
                              device=self.device) if track_stats else None)
@@ -398,12 +407,12 @@ class ShardedTorchPlane(TorchPlane):
                           None if zeros is None else zeros.clone(),
                           None if state.qres_kw is None
                           else state.qres_kw[0])
-        tmp, out = super().step(tmp, cp, xy, track_stats, query_batch, kw)
+        tmp, *rest = body(tmp)
         if track_stats:
             state = state._replace(
                 cn_rows=self._fold(state.cn_rows, tmp.cn_rows, state),
                 cn_cols=self._fold(state.cn_cols, tmp.cn_cols, state))
-        return state, out
+        return (state, *rest)
 
     def _fold(self, banks, delta, state) -> tuple:
         out = []
@@ -429,17 +438,27 @@ class ShardedTorchPlane(TorchPlane):
             total = part if total is None else total + part
         return total, sent
 
-    def run_window(self, state: ShardedState, cp: CostParams,
-                   fp: FusedParams, carry: EngineCarry, xy_stack,
-                   kw_stack=None, cells=None):
+    def _throttled_window(self, state: ShardedState, cp: CostParams,
+                          fp: FusedParams, carry: EngineCarry, xy_stack,
+                          kw_stack=None, cells=None):
+        """``TorchPlane._throttled_window`` on shard 0's replicas, its
+        collector delta then folded into the owning shards' slot banks,
+        as :meth:`step` does."""
+        return self._on_shard0(
+            state, fp.track_stats, lambda tmp: TorchPlane._throttled_window(
+                self, tmp, cp, fp, carry, xy_stack, kw_stack, cells))
+
+    def _full_window(self, state: ShardedState, cp: CostParams,
+                     fp: FusedParams, carry: EngineCarry, xy_stack,
+                     kw_stack=None, cells=None):
         """One window of W engine ticks over the shards: per-shard
         ingest histograms, the owner-keyed exchange, per-shard slot
         counts and (W, M) aggregates, their sum in shard order and
         ``TorchPlane._scan`` on shard 0 (module docstring).  As with
         ``TorchPlane``, the window holds only while backpressure stays
-        idle: ``ok`` False means the caller discards everything returned
-        and replays the window, so the input ``state`` is never
-        mutated (the new banks are fresh tensors)."""
+        idle: ``ok`` False means :meth:`run_window` discards everything
+        returned, so the input ``state`` is never mutated (the new
+        banks are fresh tensors)."""
         f32 = torch.float32
         w, b = np.shape(xy_stack)[:2]
         g = int(state.host_grid.shape[0])

@@ -2,11 +2,10 @@
 stack, with a zero-overhead disabled path.
 
 Span taxonomy (DESIGN.md §9): the control-plane timeline carries
-``tick``, ``fused_window`` (args ``ok``, running ``declined`` and
-``throttled`` counts, ``skipped``; children ``window_stage``,
-``state_refresh``, ``fused_window_dispatch`` from the data plane unless
-skipped, on a declined window ``throttled_window_dispatch`` from a plane
-that has it, else ``window_replay``), ``collectors_drain``
+``tick``, ``fused_window`` (args ``ok``, the running ``declined``
+count, ``skipped``; children ``window_stage``, ``state_refresh``, and
+from the data plane ``fused_window_dispatch`` unless skipped and, on a
+declined window, ``throttled_window_dispatch``), ``collectors_drain``
 (``bytes``), ``query_reindex`` (``queries``, ``live``, ``pairs``,
 ``hits``, ``chunks``) → ``reindex_cells`` / ``reindex_overlap`` /
 ``reindex_pivots``,

@@ -235,23 +235,42 @@ def test_declined_window_leaves_the_state_untouched(cuda_device):
                        bp_dec=0.6, bp_inc=0.04, alive=np.ones(8),
                        track_stats=True, n_alloc=host.n_alloc)
     carry = T.EngineCarry(np.zeros(8), np.zeros(8), 500.0)
-    _, _, _, ok = plane.run_window(state, router._cost_params(), fp, carry,
-                                   xy)
+    new, _, outs, ok = plane.run_window(state, router._cost_params(), fp,
+                                        carry, xy)
     assert not ok
     for a, b in zip(state, before):
         if a is not None:
             assert torch.equal(a, b)
+    # the throttled window's deposits live only in the returned banks
+    for bank in (new.cn_rows, new.cn_cols):
+        assert float(bank.sum()) == float(outs.injected.sum())
+
+
+class _PricedOn(T.NumpyPlane):
+    """The reference plane's per-tick window with each batch routed and
+    priced by ``plane``'s per-call API, as the router prices a per-tick
+    batch: the window's own arithmetic stays float64 on the host."""
+
+    def __init__(self, plane):
+        self._plane = plane
+
+    def tuple_costs(self, *args):
+        return self._plane.tuple_costs(*args)
+
+    def keyword_costs(self, *args):
+        return self._plane.keyword_costs(*args)
 
 
 @pytest.mark.parametrize("lam", [1200.0, 2000.0])
 @pytest.mark.parametrize("keyword", [False, True])
 def test_throttled_window_equals_the_per_tick_replay(cuda_device, keyword,
                                                      lam):
-    """``run_window_throttled`` on the card against the engine's per-tick
-    replay of the same eight staged batches from the same carry (throttled
-    from the first tick, or from the second): the same injected counts
-    and N′ collector deltas, count for count; the metrics and the carry
-    within 1e-9."""
+    """``run_window`` under backpressure on the card against the
+    reference plane's per-tick window, each batch priced on the card, of
+    the same eight staged batches from the same carry (throttled from the
+    first tick, or from the second): the same injected counts and N′
+    collector deltas, count for count; the metrics and the carry within
+    1e-9."""
     if keyword:
         wl = T.WorkloadSpec(query_model="spatial_keyword", term_buckets=8)
         scen = T.ScenarioSpec("hot_hashtags", ticks=24, preload_queries=2000,
@@ -279,27 +298,25 @@ def test_throttled_window_equals_the_per_tick_replay(cuda_device, keyword,
                        track_stats=True, n_alloc=host.n_alloc)
     carry = T.EngineCarry(eng.queue_units.copy(), eng.queue_tuples.copy(),
                           eng.lam_bp)
-    state = router.plane.make_state(host)
-    new, got_carry, got, ok = router.plane.run_window_throttled(
-        state, router._cost_params(), fp, carry, xy, kw_stack=kw)
-    assert ok
-    stats = router.swarm.stats
-    n0 = (stats.rows[S.C_N].copy(), stats.cols[S.C_N].copy())
-    want, _ = eng._window_reference(xy, kw)
+    cp = router._cost_params()
+    new, got_carry, got, ok = router.plane.run_window(
+        router.plane.make_state(host), cp, fp, carry, xy, kw_stack=kw)
+    assert not ok
+    ref = _PricedOn(router.plane)
+    ref_state, want_carry, want, _ = ref.run_window(
+        ref.make_state(host), cp, fp, carry, xy, kw_stack=kw)
     np.testing.assert_array_equal(got.injected, want.injected)
     assert want.injected[-1] < 2000
     p = new.cn_rows.shape[0]
-    for dev, bank, start in ((new.cn_rows, stats.rows, n0[0]),
-                             (new.cn_cols, stats.cols, n0[1])):
-        np.testing.assert_array_equal(dev.cpu().numpy(),
-                                      (bank[S.C_N] - start)[:p])
+    for dev, bank in ((new.cn_rows, ref_state.cn_rows),
+                      (new.cn_cols, ref_state.cn_cols)):
+        np.testing.assert_array_equal(dev.cpu().numpy(), bank[:p])
     names = ("throughput", "latency", "utilization") + (
         ("deliveries",) if keyword else ())
     for name, a, b in [(n, getattr(got, n), getattr(want, n)) for n in names
-                       ] + [("queue_units", got_carry.queue_units,
-                             eng.queue_units),
-                            ("queue_tuples", got_carry.queue_tuples,
-                             eng.queue_tuples)]:
+                       ] + [(n, getattr(got_carry, n), getattr(want_carry, n))
+                            for n in ("queue_units", "queue_tuples",
+                                      "lam_bp")]:
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=0, err_msg=name)
 
 

@@ -152,13 +152,14 @@ def test_keyword_workload_fused_matches_jax_plane():
 
 
 # ---------------------------------------------------------------------------
-# Backpressure: the window declines and the engine replays it
+# Backpressure: the full-batch window declines and the plane runs it
+# throttled
 # ---------------------------------------------------------------------------
 
 def test_backpressure_declines_and_replays():
     # tiny capacity: backpressure throttles injection mid-run, the
-    # optimistic window declines (ok=False) and the engine replays the
-    # staged batches through StreamingEngine._window_reference
+    # optimistic full-batch window declines (ok=False) and the plane runs
+    # the staged batches again through its throttled window
     ref = _run(T, "torch-cpu", cap_units=3e3).metrics.asarrays()
     fused = _run(T, "torch-cpu", window=8, cap_units=3e3).metrics.asarrays()
     jx = _run(J, "jax", window=8, cap_units=3e3).metrics.asarrays()
@@ -192,8 +193,10 @@ def test_declined_window_leaves_the_state_untouched():
     for name, a, b in zip(state._fields, state, before):
         if a is not None:
             torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
-    # the declined window's deposits live only in the discarded state
-    assert float(new.cn_rows.sum() - state.cn_rows.sum()) == xy.shape[0] * 500
+    # the throttled window's deposits live only in the returned state
+    for bank in ("cn_rows", "cn_cols"):
+        assert float(getattr(new, bank).sum() - getattr(state, bank).sum()
+                     ) == float(outs.injected.sum())
 
 
 # ---------------------------------------------------------------------------

@@ -48,10 +48,10 @@ COPIED = [
 ]
 # copies in which the port rewrites named definitions (its tracing inside
 # the round, the router's query index kept between rounds, the deposits
-# of the torch plane's throttled window: "docstring" and "import" name the
+# of every window, throttled or not: "docstring" and "import" name the
 # module's own): outside them each stays identical to its counterpart
 PARTLY_REWRITTEN = {
-    "analysis/sanitizer.py": ("SanitizingPlane.run_window_throttled",),
+    "analysis/sanitizer.py": ("SanitizingPlane.run_window",),
     "streaming/baselines.py": ("import", "_GridRouter.__init__",
                                "_GridRouter._ensure_qres",
                                "_GridRouter._kept",

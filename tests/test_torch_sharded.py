@@ -350,11 +350,17 @@ def test_declined_window_leaves_the_state_untouched():
                        bp_dec=0.6, bp_inc=0.04, alive=np.ones(M),
                        track_stats=True, n_alloc=host.n_alloc)
     carry = T.EngineCarry(np.zeros(M), np.zeros(M), 500.0)
-    _, _, _, ok = plane.run_window(state, router._cost_params(), fp, carry,
-                                   xy)
+    new, _, outs, ok = plane.run_window(state, router._cost_params(), fp,
+                                        carry, xy)
     assert not ok
+    assert outs.injected[0] == 500 and outs.injected[-1] < 500
     for a, b in zip(state.cn_rows + state.cn_cols, before):
         assert torch.equal(a, b)
+    # the throttled window's deposits live only in the returned banks,
+    # and the counters of held windows did not move
+    for got in plane.collector_banks(new):
+        assert float(got.sum()) == float(outs.injected.sum())
+    assert plane.windows == 0 and plane.exchange_bytes_total == 0
 
 
 # ---------------------------------------------------------------------------

@@ -158,9 +158,6 @@ def test_fused_window_children(keyword):
     ok = [e.args["ok"] for e in sorted(wins, key=lambda e: e.seq)]
     counts = [e.args["declined"] for e in sorted(wins, key=lambda e: e.seq)]
     assert counts == np.cumsum([not o for o in ok]).tolist()
-    assert [e.args["throttled"] for e in sorted(wins, key=lambda e: e.seq)
-            ] == counts
-    assert eng.throttled_windows == len(declined)
     for w in wins:
         assert len(_children(tr, w, "window_stage")) == 1
         assert len(_children(tr, w, "state_refresh")) == 1
@@ -169,7 +166,6 @@ def test_fused_window_children(keyword):
             not w.args["skipped"])
         assert len(_children(tr, w, "throttled_window_dispatch")) == (
             not w.args["ok"])
-        assert not _children(tr, w, "window_replay")
     drains = _spans(tr, "collectors_drain")
     assert drains
     assert all(e.args["bytes"] > 0 for e in drains)
